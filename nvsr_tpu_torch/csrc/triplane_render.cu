@@ -1,0 +1,436 @@
+// Triplane gather + decode for eval renders, for Hopper (sm_90a).
+//
+// Replaces the TPU megakernel nvsr_tpu/ops/pallas/tile_sampler.py:904
+// (_mega_kernel_v2) with nvsr_tpu/ops/pallas/fused_decoder.py:130
+// (decode_body) inlined; host side and plain PyTorch version in
+// nvsr_tpu_torch/ops/fused_render.py, binding in nvsr_tpu_torch/kernels.py.
+//
+// What it computes, per point n = r * S + s of R rays x S sorted depths:
+// p = o_r + d_r * z[r, s], normalized by the scene box and projected onto
+// three planes; a bilinear border-clamped sample of each plane from a
+// bf16 channel-last table [3, H, W, Cp] with bf16 x-weights bf16(1 - tx),
+// bf16(tx), f32 row sums and an f32 y-lerp top + ty * (bot - top); then
+// the triplane decoder (density MLP on the combined features, rgb MLP on
+// [f0, f1, f2, view]) with bf16 operands, f32 accumulation, f32 bias and
+// bf16 relu activations; rgb and sigma go to out[n, 0:3] and out[n, 3]
+// (ray-major [R, S, 4]). The sigma_only variant skips the rgb branch and
+// writes the fc_rgb bias into the rgb lanes; its sigma is the same code
+// as the full decode's. All f32 steps before the decoder use _rn
+// intrinsics so that no FMA contraction changes them: the features equal
+// the plain version's bit for bit.
+//
+// What bounds it on the H100: per point the gather reads 3 planes x 4 taps
+// x Cp bf16 (1152 B at Cp = 48, mostly from L2: a tile of rays touches a
+// small patch of each plane), while the full decoder is ~0.26 MFLOP (4+4
+// layers of width 128). At 989 TFLOP/s bf16 and 3.35 TB/s the two are
+// within a factor of a few of each other, so neither alone is the wall;
+// what limits this simple design is latency and shared-memory traffic.
+//
+// What the simple design does about it. The TPU design (vertical-pair
+// tables, per-chunk region DMAs, hat-weight gather matmuls, region clamps
+// and their overflow repair) exists because Mosaic cannot gather in VMEM;
+// here a point's taps are plain 16-byte loads, so none of it is carried
+// over. One block of 4 warps takes 64 consecutive points:
+//   phase 0: one thread per (point, plane) computes the tap offsets and
+//            weights into shared memory;
+//   phase 1: one thread per (point, 8 channels) loads the 12 taps (3 planes
+//            x 4) as 16-byte vectors and writes f0, f1, f2 and comb (bf16)
+//            to shared memory, plus the ray's view row;
+//   phase 2: layer by layer, the layer's bf16 weight block is staged into
+//            shared memory and each warp multiplies its 16 points with
+//            nvcuda::wmma (bf16, f32 accumulate), adds the bias, applies
+//            relu and stores bf16 back in place.
+// Weights are re-read from L2 by every block; wgmma, TMA, persistence and
+// keeping weights resident are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+#include <string.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kPoints = 64;                 // points per block
+constexpr int kWarps = kPoints / 16;        // each warp owns 16 points
+constexpr int kThreads = kWarps * 32;
+constexpr int kWidth = 128;                 // decoder width
+constexpr int kLdAct = kWidth + 8;          // padded strides spread banks
+constexpr int kLdW = kWidth + 8;
+constexpr int kHeadCols = 16;               // rgb cols 0:3, sigma col 3
+constexpr int kLdHead = kHeadCols + 8;
+
+struct Geom {
+  float lo[3], hi[3];
+  float rot[3][3][2];                       // rot_mats[p, c, 1 + k]
+};
+
+struct Params {
+  const bf16* table; int H, W, cp;
+  const float* origins; const float* dirs; const float* z; int R, S;
+  const bf16* view; int cvp;
+  const bf16* w; const float* b; const bf16* wh; const float* bh;
+  int n_density, n_rgb, skip_every;
+  int align_corners, avg;
+  float* out;
+  Geom geom;
+};
+
+// byte offsets into dynamic shared memory
+struct Layout {
+  int ldf, ldv;
+  unsigned hd, hr, feat, fv, wbuf, stage, taps, wts, total;
+};
+
+__host__ __device__ inline unsigned align128(unsigned x) {
+  return (x + 127u) & ~127u;
+}
+
+__host__ __device__ inline bool is_skip(int every, int layer_num) {
+  return every > 0 && layer_num > 0 && layer_num % every == 0;
+}
+
+// rows of layer ln's weight block: its input parts, in packing order
+__host__ __device__ inline int layer_rows(bool rgb, int ln, int every,
+                                          int cp, int cvp) {
+  int first = rgb ? 3 * cp + cvp : cp;
+  if (ln == 0) return first;
+  return is_skip(every, ln - 1) ? kWidth + first : kWidth;
+}
+
+Layout make_layout(int cp, int cvp, int max_rows) {
+  Layout L;
+  L.ldf = cp + 8;
+  L.ldv = cvp + 8;
+  unsigned off = 0;
+  L.hd = off;    off = align128(off + kPoints * kLdAct * 2);
+  L.hr = off;    off = align128(off + kPoints * kLdAct * 2);
+  L.feat = off;  off = align128(off + 4 * kPoints * L.ldf * 2);
+  L.fv = off;    off = align128(off + kPoints * L.ldv * 2);
+  unsigned wbytes = (unsigned)max_rows * kLdW * 2;
+  unsigned hbytes = 2 * kWidth * kLdHead * 2;
+  L.wbuf = off;  off = align128(off + (wbytes > hbytes ? wbytes : hbytes));
+  L.stage = off; off = align128(off + kWarps * 2 * 256 * 4);
+  L.taps = off;  off = align128(off + kPoints * 3 * 4 * 4);
+  L.wts = off;   off = align128(off + kPoints * 3 * 3 * 4);
+  L.total = off;
+  return L;
+}
+
+struct Part { const bf16* ptr; int ld; int width; };
+
+// global [rows, cols] bf16 (row-major, contiguous) -> shared, stride ldd
+__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src,
+                                  int rows, int cols) {
+  const int vecs = cols / 8;
+  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
+    const int r = i / vecs, c = (i % vecs) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
+        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * cols + c));
+  }
+}
+
+// out[warp rows, 0:128] = bf16(relu(concat(parts) @ wbuf + bias)); a warp
+// reads and writes only its own 16 rows, so `out` may be an input part.
+__device__ inline void mma_layer(const Part* parts, int nparts,
+                                 const bf16* wbuf, const float* bias,
+                                 bf16* out, float* stage, int warp,
+                                 int lane) {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  int kb = 0;
+  for (int p = 0; p < nparts; ++p) {
+    const bf16* a_base = parts[p].ptr + warp * 16 * parts[p].ld;
+    for (int k = 0; k < parts[p].width; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, a_base + k, parts[p].ld);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+        wmma::load_matrix_sync(bw, wbuf + (kb + k) * kLdW + j * 16, kLdW);
+        wmma::mma_sync(acc[j], a, bw, acc[j]);
+      }
+    }
+    kb += parts[p].width;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int r = e >> 4, c = e & 15;
+      const float v = __fadd_rn(stage[e], bias[j * 16 + c]);
+      out[(warp * 16 + r) * kLdAct + j * 16 + c] =
+          __float2bfloat16_rn(fmaxf(v, 0.0f));
+    }
+    __syncwarp();
+  }
+}
+
+__device__ inline float unnormalize(float g, int size, bool align_corners) {
+  if (align_corners)
+    return __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f), (float)(size - 1));
+  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f),
+                   0.5f);
+}
+
+template <bool kSigmaOnly>
+__global__ void __launch_bounds__(kThreads)
+triplane_render_kernel(const Params P, const Layout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* hd = reinterpret_cast<bf16*>(smem + L.hd);
+  bf16* hr = reinterpret_cast<bf16*>(smem + L.hr);
+  bf16* feat = reinterpret_cast<bf16*>(smem + L.feat);  // f0, f1, f2, comb
+  bf16* fv = reinterpret_cast<bf16*>(smem + L.fv);
+  bf16* wbuf = reinterpret_cast<bf16*>(smem + L.wbuf);
+  int* taps = reinterpret_cast<int*>(smem + L.taps);
+  float* wts = reinterpret_cast<float*>(smem + L.wts);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * 512;
+  const long long N = (long long)P.R * P.S;
+  const long long base = (long long)blockIdx.x * kPoints;
+  const int cp = P.cp, ldf = L.ldf;
+  const bool ac = P.align_corners != 0;
+
+  // phase 0: tap offsets (cells of the [3*H*W, Cp] table) and weights
+  for (int item = tid; item < kPoints * 3; item += kThreads) {
+    const int i = item / 3, pl = item % 3;
+    const long long n = base + i;
+    int t0 = 0, t1 = 0, t2 = 0, t3 = 0;
+    float w0 = 0.0f, w1 = 0.0f, ty = 0.0f;
+    if (n < N) {
+      const long long r = n / P.S;
+      const float zz = P.z[n];
+      float nc[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float pc = __fadd_rn(P.origins[r * 3 + c],
+                                   __fmul_rn(P.dirs[r * 3 + c], zz));
+        nc[c] = __fsub_rn(
+            __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(pc, P.geom.lo[c])),
+                      __fsub_rn(P.geom.hi[c], P.geom.lo[c])),
+            1.0f);
+      }
+      const float (*rot)[2] = P.geom.rot[pl];
+      const float gx = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][0]),
+                                           __fmul_rn(nc[1], rot[1][0])),
+                                 __fmul_rn(nc[2], rot[2][0]));
+      const float gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
+                                           __fmul_rn(nc[1], rot[1][1])),
+                                 __fmul_rn(nc[2], rot[2][1]));
+      const float x = fminf(fmaxf(unnormalize(gx, P.W, ac), 0.0f),
+                            (float)(P.W - 1));
+      const float y = fminf(fmaxf(unnormalize(gy, P.H, ac), 0.0f),
+                            (float)(P.H - 1));
+      const float x0f = floorf(x), y0f = floorf(y);
+      const float tx = __fsub_rn(x, x0f);
+      ty = __fsub_rn(y, y0f);
+      const int x0 = min((int)x0f, P.W - 1), y0 = min((int)y0f, P.H - 1);
+      const int x1 = min(x0 + 1, P.W - 1), y1 = min(y0 + 1, P.H - 1);
+      const int row0 = (pl * P.H + y0) * P.W, row1 = (pl * P.H + y1) * P.W;
+      t0 = row0 + x0; t1 = row0 + x1; t2 = row1 + x0; t3 = row1 + x1;
+      w0 = __bfloat162float(__float2bfloat16_rn(__fsub_rn(1.0f, tx)));
+      w1 = __bfloat162float(__float2bfloat16_rn(tx));
+    }
+    int* t = taps + item * 4;
+    t[0] = t0; t[1] = t1; t[2] = t2; t[3] = t3;
+    float* wv = wts + item * 3;
+    wv[0] = w0; wv[1] = w1; wv[2] = ty;
+  }
+  __syncthreads();
+
+  // phase 1: features of 8 channels of one point per item
+  const int chunks = cp / 8;
+  for (int item = tid; item < kPoints * chunks; item += kThreads) {
+    const int i = item / chunks, c8 = (item % chunks) * 8;
+    float comb[8];
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl) {
+      const int* t = taps + (i * 3 + pl) * 4;
+      const float* wv = wts + (i * 3 + pl) * 3;
+      const float w0 = wv[0], w1 = wv[1], ty = wv[2];
+      uint4 q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        q[k] = __ldg(reinterpret_cast<const uint4*>(
+            P.table + (size_t)t[k] * cp + c8));
+      const bf16* v00 = reinterpret_cast<const bf16*>(&q[0]);
+      const bf16* v01 = reinterpret_cast<const bf16*>(&q[1]);
+      const bf16* v10 = reinterpret_cast<const bf16*>(&q[2]);
+      const bf16* v11 = reinterpret_cast<const bf16*>(&q[3]);
+      __align__(16) bf16 fo[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float top = __fadd_rn(__fmul_rn(w0, __bfloat162float(v00[e])),
+                                    __fmul_rn(w1, __bfloat162float(v01[e])));
+        const float bot = __fadd_rn(__fmul_rn(w0, __bfloat162float(v10[e])),
+                                    __fmul_rn(w1, __bfloat162float(v11[e])));
+        const float f = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
+        comb[e] = pl == 0 ? f : __fadd_rn(comb[e], f);
+        fo[e] = __float2bfloat16_rn(f);
+      }
+      *reinterpret_cast<uint4*>(feat + (pl * kPoints + i) * ldf + c8) =
+          *reinterpret_cast<const uint4*>(fo);
+    }
+    __align__(16) bf16 co[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      co[e] = __float2bfloat16_rn(P.avg ? __fdiv_rn(comb[e], 3.0f) : comb[e]);
+    *reinterpret_cast<uint4*>(feat + (3 * kPoints + i) * ldf + c8) =
+        *reinterpret_cast<const uint4*>(co);
+  }
+  if (!kSigmaOnly) {
+    const int vch = P.cvp / 8;
+    for (int item = tid; item < kPoints * vch; item += kThreads) {
+      const int i = item / vch, c8 = (item % vch) * 8;
+      const long long n = base + i;
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (n < N)
+        q = __ldg(reinterpret_cast<const uint4*>(
+            P.view + (size_t)(n / P.S) * P.cvp + c8));
+      *reinterpret_cast<uint4*>(fv + i * L.ldv + c8) = q;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: the decoder, layer by layer
+  const Part f0 = {feat, ldf, cp}, f1 = {feat + kPoints * ldf, ldf, cp},
+             f2 = {feat + 2 * kPoints * ldf, ldf, cp},
+             comb = {feat + 3 * kPoints * ldf, ldf, cp},
+             view = {fv, L.ldv, P.cvp};
+  const bf16* wl = P.w;
+  int li = 0;
+  Part parts[5];
+  for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
+    const bool rgb = br == 1;
+    bf16* x = rgb ? hr : hd;
+    const int nl = rgb ? P.n_rgb : P.n_density;
+    for (int ln = 0; ln < nl; ++ln) {
+      int np = 0;
+      if (ln > 0) parts[np++] = Part{x, kLdAct, kWidth};
+      if (ln == 0 || is_skip(P.skip_every, ln - 1)) {
+        if (rgb) {
+          parts[np++] = f0; parts[np++] = f1; parts[np++] = f2;
+          parts[np++] = view;
+        } else {
+          parts[np++] = comb;
+        }
+      }
+      const int rows = layer_rows(rgb, ln, P.skip_every, cp, P.cvp);
+      stage_rows(wbuf, kLdW, wl, rows, kWidth);
+      __syncthreads();
+      mma_layer(parts, np, wbuf, P.b + li * kWidth, x, stage, warp, lane);
+      __syncthreads();
+      wl += (size_t)rows * kWidth;
+      ++li;
+    }
+  }
+
+  // heads: rows [0, 128) of the staged block are fc_rgb, [128, 256) fc_alpha
+  stage_rows(wbuf, kLdHead, P.wh, 2 * kWidth, kHeadCols);
+  __syncthreads();
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_r;
+  wmma::fill_fragment(acc_s, 0.0f);
+  wmma::fill_fragment(acc_r, 0.0f);
+#pragma unroll
+  for (int k = 0; k < kWidth; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+    wmma::load_matrix_sync(a, hd + warp * 16 * kLdAct + k, kLdAct);
+    wmma::load_matrix_sync(bw, wbuf + (kWidth + k) * kLdHead, kLdHead);
+    wmma::mma_sync(acc_s, a, bw, acc_s);
+    if (!kSigmaOnly) {
+      wmma::load_matrix_sync(a, hr + warp * 16 * kLdAct + k, kLdAct);
+      wmma::load_matrix_sync(bw, wbuf + k * kLdHead, kLdHead);
+      wmma::mma_sync(acc_r, a, bw, acc_r);
+    }
+  }
+  wmma::store_matrix_sync(stage, acc_s, 16, wmma::mem_row_major);
+  wmma::store_matrix_sync(stage + 256, acc_r, 16, wmma::mem_row_major);
+  __syncwarp();
+  if (lane < 16) {
+    const long long n = base + warp * 16 + lane;
+    if (n < N) {
+      const float* s = stage + lane * 16;
+      const float* r = stage + 256 + lane * 16;
+      float4 o;
+      o.x = kSigmaOnly ? P.bh[0] : __fadd_rn(r[0], P.bh[0]);
+      o.y = kSigmaOnly ? P.bh[1] : __fadd_rn(r[1], P.bh[1]);
+      o.z = kSigmaOnly ? P.bh[2] : __fadd_rn(r[2], P.bh[2]);
+      o.w = __fadd_rn(s[3], P.bh[3]);
+      *reinterpret_cast<float4*>(P.out + n * 4) = o;
+    }
+  }
+}
+
+template <bool kSigmaOnly>
+int launch(const Params& p, cudaStream_t stream) {
+  int max_rows = 0;
+  for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
+    const int nl = br ? p.n_rgb : p.n_density;
+    for (int ln = 0; ln < nl; ++ln) {
+      const int rows = layer_rows(br == 1, ln, p.skip_every, p.cp, p.cvp);
+      if (rows > max_rows) max_rows = rows;
+    }
+  }
+  const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp, max_rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      triplane_render_kernel<kSigmaOnly>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)p.R * p.S;
+  const long long blocks = (n + kPoints - 1) / kPoints;
+  if (blocks > 0)
+    triplane_render_kernel<kSigmaOnly>
+        <<<(unsigned)blocks, kThreads, L.total, stream>>>(p, L);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const void* table, int H, int W, int cp,
+                   const float* origins, const float* dirs, const float* z,
+                   int R, int S, const void* view, int cvp, const void* w,
+                   const float* b, const void* wh, const float* bh,
+                   int n_density, int n_rgb, int skip_every,
+                   const float* geom_host, int align_corners, int avg,
+                   float* out) {
+  Params p;
+  p.table = static_cast<const bf16*>(table); p.H = H; p.W = W; p.cp = cp;
+  p.origins = origins; p.dirs = dirs; p.z = z; p.R = R; p.S = S;
+  p.view = static_cast<const bf16*>(view); p.cvp = cvp;
+  p.w = static_cast<const bf16*>(w); p.b = b;
+  p.wh = static_cast<const bf16*>(wh); p.bh = bh;
+  p.n_density = n_density; p.n_rgb = n_rgb; p.skip_every = skip_every;
+  p.align_corners = align_corners; p.avg = avg; p.out = out;
+  memcpy(&p.geom, geom_host, sizeof(Geom));
+  return p;
+}
+
+}  // namespace
+
+// C interface (ctypes). Returns a cudaError_t: 0 when the launch was
+// accepted. geom_host: 24 host floats (box min, box max, rot[p][c][1:3]).
+#define TRIPLANE_ARGS                                                        \
+  const void *table, int H, int W, int cp, const float *origins,            \
+      const float *dirs, const float *z, int R, int S, const void *view,    \
+      int cvp, const void *w, const float *b, const void *wh,               \
+      const float *bh, int n_density, int n_rgb, int skip_every,            \
+      const float *geom_host, int align_corners, int avg, float *out,       \
+      void *stream
+#define TRIPLANE_PASS                                                        \
+  table, H, W, cp, origins, dirs, z, R, S, view, cvp, w, b, wh, bh,         \
+      n_density, n_rgb, skip_every, geom_host, align_corners, avg, out
+
+extern "C" int triplane_render_full(TRIPLANE_ARGS) {
+  return launch<false>(make_params(TRIPLANE_PASS),
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int triplane_render_sigma_only(TRIPLANE_ARGS) {
+  return launch<true>(make_params(TRIPLANE_PASS),
+                      static_cast<cudaStream_t>(stream));
+}

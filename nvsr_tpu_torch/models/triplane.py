@@ -1,0 +1,331 @@
+"""Triplane scene model, reference (non-kernel) path (counterpart of
+nvsr_tpu/models/triplane.py).
+
+Decoder parameters are the JAX pytree layout with torch tensors
+(`bridge.decoder_from_jax`): {"members": [{"density": [{"w", "b"}, ...],
+"fc_alpha", "rgb": [...], "fc_rgb"}]}, weights [in, out]. The fused
+kernel path (`apply_triplane_rays_from_z`) is held against this one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nvsr_tpu_torch.ops.geometry import cart2az_el, normalize_coords
+from nvsr_tpu_torch.ops.grid_sample import (dense_bilinear_sample,
+                                            grid_sample_2d,
+                                            multi_plane_sample)
+
+
+@dataclasses.dataclass(frozen=True)
+class TriplaneConfig:
+    """Static model hyperparameters; mirrors the JAX TriplaneConfig
+    field for field so pickled configs load into it."""
+    use_viewdirs: bool = True
+    dec_density_layers: int = 4
+    dec_rgb_layers: int = 4
+    dec_channels: int = 128
+    skip_connect_every: Optional[int] = None
+    num_plane_channels: int = 48
+    num_viewdir_plane_channels: Optional[int] = None
+    rgb_dec_input: str = "projections"          # projections|features|...
+    proj_combination: str = "sum"               # sum|avg|concat
+    plane_interp: str = "bilinear"              # bilinear|bicubic
+    align_corners: bool = True
+    viewdir_proj_combination: Optional[str] = None  # sum|avg|mult|concat|concat_pos
+    num_planes: int = 3
+    ensemble_size: int = 1
+    point_coords_noise: float = 0.0
+    # round the plane taps to this dtype ('bfloat16'); None = plane dtype
+    gather_table_dtype: Optional[str] = None
+    # decoder matmul operands in this dtype, f32 accumulation
+    compute_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        assert self.rgb_dec_input in (
+            "projections", "features", "projections_features")
+        assert self.proj_combination in ("sum", "concat", "avg")
+        vc = self.viewdir_proj_combination or self.proj_combination
+        assert vc in ("sum", "concat", "avg", "mult", "concat_pos")
+        if self.viewdir_channels != self.num_plane_channels:
+            assert self.use_viewdirs is False or "concat" in vc
+
+    @property
+    def viewdir_channels(self) -> int:
+        if self.num_viewdir_plane_channels is not None:
+            return self.num_viewdir_plane_channels
+        return self.num_plane_channels if self.use_viewdirs else 0
+
+    @property
+    def viewdir_combination(self) -> str:
+        return self.viewdir_proj_combination or self.proj_combination
+
+    @property
+    def density_in_channels(self) -> int:
+        mult = self.num_planes if self.proj_combination == "concat" else 1
+        return self.num_plane_channels * mult
+
+    @property
+    def rgb_in_channels(self) -> int:
+        src_planes = 1 if "features" in self.rgb_dec_input else self.num_planes
+        pos_ch = self.num_plane_channels * (
+            src_planes if self.proj_combination == "concat" else 1)
+        if not self.use_viewdirs:
+            return pos_ch
+        comb = self.viewdir_combination
+        if comb == "concat_pos":
+            return self.num_plane_channels * src_planes + self.viewdir_channels
+        if comb == "concat":
+            return pos_ch + self.viewdir_channels
+        return pos_ch
+
+    def is_skip_layer(self, layer_num: int) -> bool:
+        if self.skip_connect_every is None:
+            return False
+        return layer_num % self.skip_connect_every == 0 and layer_num > 0
+
+    @classmethod
+    def from_cfg(cls, model_cfg, nerf_cfg) -> "TriplaneConfig":
+        """Build from the reference-style YAML sections."""
+        g = model_cfg.get
+        return cls(
+            use_viewdirs=nerf_cfg.get("use_viewdirs", True),
+            dec_density_layers=g("dec_density_layers", 4),
+            dec_rgb_layers=g("dec_rgb_layers", 4),
+            dec_channels=g("dec_channels", 128),
+            skip_connect_every=g("skip_connect_every", None),
+            num_plane_channels=g("num_plane_channels", 48),
+            num_viewdir_plane_channels=g("num_viewdir_plane_channels", None),
+            rgb_dec_input=g("rgb_dec_input", "projections"),
+            proj_combination=g("proj_combination", "sum"),
+            plane_interp=g("plane_interp", "bilinear"),
+            align_corners=g("align_corners", True),
+            viewdir_proj_combination=g("viewdir_proj_combination", None),
+            num_planes=g("num_planes", 3),
+            ensemble_size=g("ensemble_size", 1),
+            point_coords_noise=nerf_cfg.get_path("train.point_coords_noise", 0)
+            if hasattr(nerf_cfg, "get_path") else 0,
+            gather_table_dtype=g("gather_table_dtype", None),
+            compute_dtype=g("compute_dtype", None),
+        )
+
+
+def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """'bfloat16' -> torch.bfloat16; None stays None."""
+    return None if name is None else getattr(torch, name)
+
+
+@functools.lru_cache(maxsize=16)
+def make_rot_mats(num_planes: int, seed: int = 0) -> np.ndarray:
+    """[P, 3, 3] fixed projection bases (copied from the JAX module):
+    plane d projects coords onto columns 1:3 of rot_mats[d]."""
+    if num_planes <= 3:
+        base = np.eye(3, dtype=np.float32)
+        mats = [base, base[:, [1, 0, 2]], base[:, [2, 0, 1]]]
+        return np.stack(mats[:num_planes])
+
+    n_trials = 10000
+    rng = np.random.default_rng(seed)
+    axes = rng.uniform(-1, 1, size=[n_trials, num_planes, 3])
+    axes /= np.sqrt(np.sum(axes ** 2, 2, keepdims=True))
+    axes = np.concatenate([axes, -axes], 1)
+    d2 = np.sum((axes[..., None, :] - np.expand_dims(axes, 1)) ** 2, -1)
+    score = np.sum(np.sort(d2, 1)[:, 1, ...], -1)
+    chosen = axes[np.argmax(score)][:num_planes]
+    mats = []
+    for norm in chosen:
+        rank = 0
+        while rank != 3:
+            mat = np.concatenate([norm[:, None], rng.uniform(size=[3, 2])], 1)
+            rank = np.linalg.matrix_rank(mat)
+        mats.append(np.linalg.qr(mat)[0])
+    return np.stack(mats).astype(np.float32)
+
+
+def project_to_planes(coords, rot_mats):
+    """[N, 3] coords -> [P, N, 2] per-plane projections (columns 1:3)."""
+    rot = torch.as_tensor(np.asarray(rot_mats), dtype=coords.dtype,
+                          device=coords.device)
+    return torch.einsum("nc,pck->pnk", coords, rot[:, :, 1:])
+
+
+def _linear(p, x, compute_dtype=None):
+    """x @ w + b. With a compute dtype the operands are rounded to it and
+    multiplied in f32: bf16 products are exact in f32, so this is bf16
+    operands with f32 accumulation."""
+    if compute_dtype is None:
+        return x @ p["w"] + p["b"]
+    cd = torch_dtype(compute_dtype)
+    return (x.to(cd).float() @ p["w"].to(cd).float()) + p["b"]
+
+
+def combine_pos_planes(projs, combination: str):
+    """[P, N, C] -> combined features."""
+    if combination == "sum":
+        return torch.sum(projs, dim=0)
+    if combination == "avg":
+        return torch.mean(projs, dim=0)
+    if combination == "concat":
+        p, n, c = projs.shape
+        return projs.permute(1, 0, 2).reshape(n, p * c)
+    raise ValueError(combination)
+
+
+def combine_all_planes(pos_projs, viewdir_proj, cfg: TriplaneConfig):
+    """Merge positional and view-direction features."""
+    comb = cfg.viewdir_combination
+    if comb == "concat_pos":
+        p, n, c = pos_projs.shape
+        flat = pos_projs.permute(1, 0, 2).reshape(n, p * c)
+        return torch.cat([flat, viewdir_proj], dim=-1)
+
+    pos = combine_pos_planes(pos_projs, cfg.proj_combination)
+    pos_shape = pos.shape
+    view = viewdir_proj
+    if comb != "concat" and pos.shape[1] > view.shape[1]:
+        pos = pos.reshape(pos_shape[0], view.shape[1], -1)
+        view = view[..., None]
+    if comb == "sum":
+        return (pos + view).reshape(pos_shape)
+    if comb == "avg":
+        return ((pos + view) / 2).reshape(pos_shape)
+    if comb == "mult":
+        return (pos * (1 + view)).reshape(pos_shape)
+    if comb == "concat":
+        return torch.cat([pos, view], dim=-1)
+    raise ValueError(comb)
+
+
+def _mlp_branch(layers, fc_out, x_in, cfg: TriplaneConfig):
+    """relu after every hidden layer, skip-concat of the branch input
+    when is_skip_layer(layer_num - 1), linear head."""
+    x = x_in
+    for layer_num, p in enumerate(layers):
+        if cfg.is_skip_layer(layer_num - 1):
+            x = torch.cat([x, x_in], dim=-1)
+        x = torch.relu(_linear(p, x, cfg.compute_dtype))
+    return x, _linear(fc_out, x, cfg.compute_dtype)
+
+
+def sample_planes(planes_pos, grids, cfg: TriplaneConfig):
+    """[P, C, H, W] planes at [P, N, 2] grids -> [P, N, C] (bilinear,
+    taps rounded to cfg.gather_table_dtype)."""
+    if cfg.plane_interp != "bilinear":
+        raise NotImplementedError(
+            f"plane_interp={cfg.plane_interp!r} is not ported yet")
+    return multi_plane_sample(planes_pos, grids,
+                              align_corners=cfg.align_corners,
+                              tap_dtype=torch_dtype(cfg.gather_table_dtype))
+
+
+def sample_viewdir_plane(plane_view, viewdirs, box, cfg: TriplaneConfig,
+                         dense: bool = False):
+    """Unit viewdirs [N, 3] -> view-plane features [N, Cv].
+
+    dense=True: the tiled eval path's sampler (bf16 weights and taps,
+    f32 accumulation; JAX takes it for view planes up to 4096 cells)."""
+    if cfg.plane_interp != "bilinear":
+        raise NotImplementedError(
+            f"plane_interp={cfg.plane_interp!r} is not ported yet")
+    azel = cart2az_el(viewdirs)
+    box = torch.as_tensor(box, dtype=viewdirs.dtype, device=viewdirs.device)
+    azel_n = normalize_coords(azel, box[:, 3:])
+    if dense and plane_view.shape[-2] * plane_view.shape[-1] <= 4096:
+        return dense_bilinear_sample(plane_view, azel_n,
+                                     align_corners=cfg.align_corners)
+    return grid_sample_2d(plane_view, azel_n, align_corners=cfg.align_corners)
+
+
+def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
+                       *, member: int = 0, sigma_only: bool = False):
+    """Decoder on pre-sampled plane features [P, N, C] (+ view [N, Cv])
+    -> [N, 4] (rgb logits, sigma logit).
+
+    sigma_only skips the view-conditioned rgb branch: sigma is the same,
+    rgb lanes hold the fc_rgb bias."""
+    m = params["members"][member]
+    projected_xyz = combine_pos_planes(pos_projs, cfg.proj_combination)
+    h, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected_xyz, cfg)
+    if sigma_only:
+        rgb = m["fc_rgb"]["b"].to(alpha.dtype).expand(
+            alpha.shape[:-1] + (3,))
+        return torch.cat([rgb, alpha], dim=-1)
+    if "features" in cfg.rgb_dec_input:
+        raise NotImplementedError(
+            "rgb_dec_input='features' is not ported yet")
+    if cfg.use_viewdirs:
+        x_rgb_in = combine_all_planes(pos_projs, view_proj, cfg)
+    else:
+        x_rgb_in = combine_pos_planes(pos_projs, cfg.proj_combination)
+    _, rgb = _mlp_branch(m["rgb"], m["fc_rgb"], x_rgb_in, cfg)
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
+                          xyz_raw, view_proj, *, member: int = 0,
+                          rot_mats=None, sigma_only: bool = False):
+    """Forward on raw points [N, 3] with pre-sampled view features
+    [N, Cv] (or None) -> [N, 4]."""
+    box = torch.as_tensor(box, dtype=xyz_raw.dtype, device=xyz_raw.device)
+    xyz = normalize_coords(xyz_raw, box[:, :3])
+    rot = rot_mats if rot_mats is not None else make_rot_mats(cfg.num_planes)
+    grids = project_to_planes(xyz, rot)
+    pos_projs = sample_planes(planes_pos, grids, cfg)
+    return decode_projections(params, cfg, pos_projs, view_proj,
+                              member=member, sigma_only=sigma_only)
+
+
+def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
+                        box, pts, viewdirs, *, member: int = 0,
+                        rot_mats=None, sigma_only: bool = False):
+    """Ray-structured forward: pts [R, S, 3] + per-ray viewdirs [R, 3] ->
+    [R, S, 4]. The view plane is sampled once per ray and broadcast."""
+    r, s, _ = pts.shape
+    view_proj = None
+    if cfg.use_viewdirs and not sigma_only:
+        vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg)
+        view_proj = vp_ray[:, None, :].expand(r, s, vp_ray.shape[-1]
+                                              ).reshape(r * s, -1)
+    out = apply_triplane_points(params, cfg, planes_pos, box,
+                                pts.reshape(-1, 3), view_proj,
+                                member=member, rot_mats=rot_mats,
+                                sigma_only=sigma_only)
+    return out.reshape(r, s, 4)
+
+
+def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
+                               plane_view, box, origins, directions,
+                               viewdirs, z_vals, *, member: int = 0,
+                               rot_mats=None, table=None, packed=None,
+                               geom=None, sigma_only: bool = False):
+    """Fused forward straight from rays: origins/directions [R, 3],
+    z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}) through the
+    gather+decode kernel (ops/fused_render.py). `table`, `packed` and
+    `geom` are the per-scene plane table, packed decoder and kernel
+    geometry; built here when not given (make_triplane_point_fn builds
+    them once per point fn)."""
+    from nvsr_tpu_torch.ops import fused_render
+    if not fused_render.supports(cfg):
+        raise ValueError(f"the fused triplane kernel does not support {cfg}")
+    if table is None:
+        table = fused_render.build_plane_table(planes_pos)
+    if packed is None:
+        packed = fused_render.pack_decoder(params, cfg, member)
+    if geom is None:
+        rot = rot_mats if rot_mats is not None \
+            else make_rot_mats(cfg.num_planes)
+        geom = fused_render.geometry_args(box, rot)
+    view = None
+    if not sigma_only:
+        vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg,
+                                      dense=True)
+        view = fused_render.view_rows(vp_ray, packed.cvp)
+    return fused_render.fused_render_rays(
+        table, packed, origins, directions, z_vals, view, geom,
+        align_corners=cfg.align_corners,
+        avg=cfg.proj_combination == "avg", sigma_only=sigma_only)

@@ -1,0 +1,282 @@
+"""Host side of the triplane gather+decode kernel, and its plain version.
+
+Counterpart of nvsr_tpu/ops/pallas/tile_sampler.py::tiled_render_rays
+(the entry of the TPU megakernel `_mega_kernel_v2`) together with
+nvsr_tpu/ops/pallas/fused_decoder.py::supports / pack_decoder_weights.
+The CUDA kernel is csrc/triplane_render.cu (built and bound by
+kernels.py); `fused_render_reference` below is its plain PyTorch version
+with the same rounding, used on the CPU and as the kernel's oracle.
+
+What both compute, per point of rays x sorted depths (ray-major):
+  * the point o + d*z, normalized by the scene box, projected onto the
+    3 planes (columns 1:3 of each rotation);
+  * a bilinear border-clamped sample of each plane with bf16 taps and
+    bf16 x-weights bf16(1 - tx), bf16(tx); the two rows are interpolated
+    in f32 and y-lerped in f32 as top + ty * (bot - top) (the shipped
+    JAX kernel's single-M gather, tile_sampler.py:1115-1123);
+  * comb = (f0 + f1 + f2) [/ 3] in f32; the density MLP on comb, the rgb
+    MLP on [f0, f1, f2, view]; bf16 operands, f32 accumulation, f32 bias,
+    relu activations kept in bf16; skip layers re-concatenate the branch
+    input; heads give rgb (lanes 0:3) and sigma (lane 3);
+  * sigma_only: the rgb branch is skipped, rgb lanes hold the fc_rgb
+    bias, sigma is computed by the same code as in the full decode.
+
+overflow_frac is always 0.0: on Hopper each point's four taps per plane
+are plain loads, so no chunk footprint is ever clamped to a region.
+The TPU path's region capacity, hybrid overflow repair
+(triplane.py:501-550) and compact->XLA eval ladder (experiment.py
+:1062-1068) exist only because its kernel clamps; they have no
+counterpart here, and the aux key is kept for the point-fn protocol.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nvsr_tpu_torch.ops.grid_sample import _corners
+
+WIDTH = 128        # decoder width the kernel supports (dec_channels)
+HEAD_COLS = 16     # head block width: rgb in cols 0:3, sigma in col 3
+CH_ALIGN = 16      # feature parts are padded to a multiple of this
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def supports(cfg) -> bool:
+    """True when the kernel computes this triplane config. compute_dtype
+    must be explicitly bfloat16 (the kernel's matmuls are bf16), as in
+    the JAX fused_decoder.supports."""
+    return (cfg.compute_dtype == "bfloat16"
+            and cfg.plane_interp == "bilinear"
+            and cfg.num_planes == 3
+            and cfg.proj_combination in ("avg", "sum")
+            and cfg.viewdir_combination == "concat_pos"
+            and cfg.rgb_dec_input == "projections"
+            and cfg.use_viewdirs
+            and cfg.num_plane_channels <= 64
+            and cfg.viewdir_channels <= 64
+            and cfg.dec_channels == WIDTH)
+
+
+def build_plane_table(planes_pos) -> torch.Tensor:
+    """[3, C, H, W] planes -> [3, H, W, Cp] bf16 channel-last table with
+    the channels zero-padded to Cp = round_up(C, 16). Built once per
+    scene and point function (counterpart of build_pair_tables)."""
+    p, c, h, w = planes_pos.shape
+    cp = _round_up(c, CH_ALIGN)
+    table = torch.zeros((p, h, w, cp), dtype=torch.bfloat16,
+                        device=planes_pos.device)
+    table[..., :c] = planes_pos.permute(0, 2, 3, 1).to(torch.bfloat16)
+    return table
+
+
+def _is_skip(skip_every: int, layer_num: int) -> bool:
+    return skip_every > 0 and layer_num > 0 and layer_num % skip_every == 0
+
+
+def layer_inputs(branch: str, ln: int, skip_every: int):
+    """Names of the input parts of layer `ln` of a branch, in the row
+    order of its packed weight block ("x" = the previous activation)."""
+    first = ["comb"] if branch == "density" else ["f0", "f1", "f2", "fv"]
+    if ln == 0:
+        return first
+    if _is_skip(skip_every, ln - 1):
+        return ["x"] + first
+    return ["x"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedDecoder:
+    """One decoder member in the kernel's layout.
+
+    w:  [rows, 128] bf16, the layers' weight blocks stacked in order
+        (density layers, then rgb layers); each block has one row group
+        per input part of layer_inputs(), parts padded to cp/cvp rows.
+    b:  [n_density + n_rgb, 128] f32 biases.
+    wh: [2, 128, 16] bf16 heads: fc_rgb into cols 0:3, fc_alpha into
+        col 3. bh: [16] f32 head bias (rgb 0:3, sigma 3).
+    """
+    w: torch.Tensor
+    b: torch.Tensor
+    wh: torch.Tensor
+    bh: torch.Tensor
+    n_density: int
+    n_rgb: int
+    skip_every: int     # 0 = no skip layers
+    cp: int
+    cvp: int
+
+    def part_width(self, name: str) -> int:
+        return {"x": WIDTH, "fv": self.cvp}.get(name, self.cp)
+
+    def layers(self):
+        """[(branch, ln, row offset, K, part names)] in packing order."""
+        out, off = [], 0
+        for branch, n in (("density", self.n_density), ("rgb", self.n_rgb)):
+            for ln in range(n):
+                names = layer_inputs(branch, ln, self.skip_every)
+                k = sum(self.part_width(nm) for nm in names)
+                out.append((branch, ln, off, k, names))
+                off += k
+        return out
+
+
+def pack_decoder(params, cfg, member: int = 0) -> PackedDecoder:
+    """Pack decoder `member` (JAX pytree layout, torch tensors) for the
+    kernel; weights are rounded to bf16 once here."""
+    if not supports(cfg):
+        raise ValueError(f"the fused triplane kernel does not support {cfg}")
+    m = params["members"][member]
+    c, cv = cfg.num_plane_channels, cfg.viewdir_channels
+    cp, cvp = _round_up(c, CH_ALIGN), _round_up(cv, CH_ALIGN)
+    skip_every = cfg.skip_connect_every or 0
+    dev = m["fc_rgb"]["w"].device
+    src_rows = {"x": WIDTH, "comb": c, "f0": c, "f1": c, "f2": c, "fv": cv}
+    pad_rows = {"x": WIDTH, "comb": cp, "f0": cp, "f1": cp, "f2": cp,
+                "fv": cvp}
+
+    blocks, biases = [], []
+    for branch in ("density", "rgb"):
+        for ln, layer in enumerate(m[branch]):
+            w = layer["w"].float()
+            row, parts = 0, []
+            for name in layer_inputs(branch, ln, skip_every):
+                n = src_rows[name]
+                part = torch.zeros((pad_rows[name], WIDTH), device=dev)
+                part[:n] = w[row:row + n]
+                parts.append(part)
+                row += n
+            if row != w.shape[0] or w.shape[1] != WIDTH:
+                raise ValueError(f"{branch} layer {ln}: weight shape "
+                                 f"{tuple(w.shape)} does not match {cfg}")
+            blocks.append(torch.cat(parts))
+            biases.append(layer["b"].float())
+    wh = torch.zeros((2, WIDTH, HEAD_COLS), device=dev)
+    wh[0, :, :3] = m["fc_rgb"]["w"].float()
+    wh[1, :, 3] = m["fc_alpha"]["w"].float()[:, 0]
+    bh = torch.zeros(HEAD_COLS, device=dev)
+    bh[:3] = m["fc_rgb"]["b"].float()
+    bh[3] = m["fc_alpha"]["b"].float()[0]
+    return PackedDecoder(
+        w=torch.cat(blocks).to(torch.bfloat16).contiguous(),
+        b=torch.stack(biases).contiguous(),
+        wh=wh.to(torch.bfloat16).contiguous(), bh=bh.contiguous(),
+        n_density=len(m["density"]), n_rgb=len(m["rgb"]),
+        skip_every=skip_every, cp=cp, cvp=cvp)
+
+
+def view_rows(vp_ray, cvp: int) -> torch.Tensor:
+    """Per-ray view features [R, Cv] -> [R, cvp] bf16 kernel rows (one
+    row per ray, broadcast over its samples in the kernel)."""
+    r, cv = vp_ray.shape
+    rows = torch.zeros((r, cvp), dtype=torch.bfloat16, device=vp_ray.device)
+    rows[:, :cv] = vp_ray.to(torch.bfloat16)
+    return rows
+
+
+def geometry_args(box, rot) -> np.ndarray:
+    """[24] f32 kernel geometry (host array, passed to the kernel by
+    value): box min (3), box max (3), then rot[p, c, 1 + k] for p, c < 3
+    and k < 2. `box` may be a tensor on any device."""
+    if torch.is_tensor(box):
+        box = box.detach().cpu().numpy()
+    box = np.asarray(box, dtype=np.float32)
+    rot = np.asarray(rot, dtype=np.float32)
+    return np.concatenate([box[0, :3], box[1, :3],
+                           rot[:, :, 1:3].reshape(-1)]).astype(np.float32)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def gather_features(table, origins, directions, z_vals, geom,
+                    align_corners: bool):
+    """The kernel's plane gather: -> 3 x [R*S, Cp] f32 features."""
+    _, h, w, cp = table.shape
+    g = torch.as_tensor(geom, device=table.device)
+    lo, hi, rot = g[0:3], g[3:6], g[6:].reshape(3, 3, 2)
+    pts = (origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+           ).reshape(-1, 3)
+    n = 2.0 * (pts - lo) / (hi - lo) - 1.0
+    feats = []
+    for p in range(3):
+        gx = n[:, 0] * rot[p, 0, 0] + n[:, 1] * rot[p, 1, 0] \
+            + n[:, 2] * rot[p, 2, 0]
+        gy = n[:, 0] * rot[p, 0, 1] + n[:, 1] * rot[p, 1, 1] \
+            + n[:, 2] * rot[p, 2, 1]
+        x, y, x0, x1, y0, y1 = _corners(torch.stack([gx, gy], dim=-1), h, w,
+                                        align_corners)
+        tx = (x - torch.floor(x))[:, None]
+        ty = (y - torch.floor(y))[:, None]
+        w0, w1 = _bf16(1.0 - tx), _bf16(tx)
+        cells = table[p].reshape(h * w, cp)
+        v00, v01 = cells[y0 * w + x0].float(), cells[y0 * w + x1].float()
+        v10, v11 = cells[y1 * w + x0].float(), cells[y1 * w + x1].float()
+        top = w0 * v00 + w1 * v01
+        bot = w0 * v10 + w1 * v11
+        feats.append(top + ty * (bot - top))
+    return feats
+
+
+def fused_render_reference(table, packed: PackedDecoder, origins,
+                           directions, z_vals, view, geom, *,
+                           align_corners: bool, avg: bool,
+                           sigma_only: bool) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> [R, S, 4] f32."""
+    r, s = z_vals.shape
+    f0, f1, f2 = gather_features(table, origins, directions, z_vals, geom,
+                                 align_corners)
+    comb = f0 + f1 + f2
+    if avg:
+        comb = comb / 3.0
+    parts = {"comb": _bf16(comb), "f0": _bf16(f0), "f1": _bf16(f1),
+             "f2": _bf16(f2)}
+    if not sigma_only:
+        parts["fv"] = view.float()[:, None, :].expand(
+            r, s, packed.cvp).reshape(r * s, packed.cvp)
+    w = packed.w.float()
+    acts = {}
+    for li, (branch, ln, off, k, names) in enumerate(packed.layers()):
+        if branch == "rgb" and sigma_only:
+            break
+        x = torch.cat([acts[branch] if nm == "x" else parts[nm]
+                       for nm in names], dim=-1)
+        y = x @ w[off:off + k] + packed.b[li]
+        acts[branch] = _bf16(torch.relu(y))
+    wh = packed.wh.float()
+    sigma = (acts["density"] @ wh[1])[:, 3:4] + packed.bh[3]
+    if sigma_only:
+        rgb = packed.bh[:3].expand(r * s, 3)
+    else:
+        rgb = (acts["rgb"] @ wh[0])[:, :3] + packed.bh[:3]
+    return torch.cat([rgb, sigma], dim=-1).reshape(r, s, 4)
+
+
+def fused_render_rays(table, packed: PackedDecoder, origins, directions,
+                      z_vals, view: Optional[torch.Tensor], geom, *,
+                      align_corners: bool, avg: bool, sigma_only: bool):
+    """Gather + decode for rays [R, 3] x depths [R, S] ->
+    ([R, S, 4] f32 ray-major, {"overflow_frac": 0.0}); geom from
+    geometry_args.
+
+    A CPU table runs the plain version; any other table goes to the
+    kernel (kernels.triplane_render), which launches on a CUDA table and
+    raises on any other device or on any failure."""
+    if table.device.type == "cpu":
+        out = fused_render_reference(
+            table, packed, origins, directions, z_vals, view, geom,
+            align_corners=align_corners, avg=avg, sigma_only=sigma_only)
+    else:
+        from nvsr_tpu_torch import kernels
+        out = kernels.triplane_render(
+            table, packed, origins.contiguous(), directions.contiguous(),
+            z_vals.contiguous(), view, geom,
+            align_corners=align_corners, avg=avg, sigma_only=sigma_only)
+    return out, {"overflow_frac": 0.0}

@@ -1,0 +1,125 @@
+"""The weight bridge and the port's import boundary."""
+
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nvsr_tpu.models import plane_sr as jp
+from nvsr_tpu.models import triplane as jt
+from nvsr_tpu_torch import bridge
+from nvsr_tpu_torch.models.triplane import TriplaneConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _leaves_equal(jtree, ttree):
+    jl, jdef = jax.tree.flatten(jtree)
+    tl = jax.tree.leaves(jax.tree.map(lambda x: x.numpy(), ttree))
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_decoder_round_trip():
+    cfg = jt.TriplaneConfig(dec_channels=16, num_plane_channels=8,
+                            dec_density_layers=5, dec_rgb_layers=5,
+                            skip_connect_every=3,
+                            viewdir_proj_combination="concat_pos")
+    tree = jt.init_decoder_params(jax.random.PRNGKey(1), cfg)
+    port = bridge.decoder_from_jax(jax.tree.map(np.asarray, tree))
+    assert port["members"][0]["density"][4]["w"].shape == (16 + 8, 16)
+    _leaves_equal(tree, port)
+
+
+def test_plane_sr_round_trip_keeps_oihw():
+    cfg = jp.PlaneSRConfig(in_channels=4, out_channels=4, hidden_size=8,
+                           n_blocks=2, scale_factor=2)
+    tree = jp.init_plane_sr_params(jax.random.PRNGKey(2), cfg)
+    port = bridge.plane_sr_from_jax(tree)
+    assert port["inner"]["conv_input"]["w"].shape == (8, 4, 3, 3)
+    assert port["inner"]["upscale"][0]["w"].shape == (32, 8, 3, 3)
+    _leaves_equal(tree, port)
+
+
+def test_load_gate_asset_maps_config():
+    a = bridge.load_gate_asset(os.path.join(REPO, "assets",
+                                            "gate_scene.pkl"))
+    assert isinstance(a["model_cfg"], TriplaneConfig)
+    assert a["model_cfg"].num_plane_channels == a["planes_pos"].shape[1]
+    assert a["gt"].shape == (a["h"], a["w"], 3)
+
+
+def test_load_gate_asset_refuses_jax_objects(tmp_path):
+    p = tmp_path / "bad.pkl"
+    p.write_bytes(pickle.dumps({"x": jnp.zeros(2)}))
+    with pytest.raises(pickle.UnpicklingError):
+        bridge.load_gate_asset(p)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = (
+        "import sys, importlib, pkgutil, nvsr_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    nvsr_tpu_torch.__path__, 'nvsr_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nvsr_tpu'))\n"
+        "print(len(mods), bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 12 and bad.strip() == "[]", out.stdout
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """fused_render_rays dispatches on the tensor's device alone: a CUDA
+    table goes to the kernel wrapper (here a stub that records the call),
+    never to the plain version."""
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops import fused_render
+
+    calls = []
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    def kernel(*args, **kw):
+        calls.append(kw)
+        return "kernel"
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version used for a CUDA tensor")
+
+    monkeypatch.setattr(kernels, "triplane_render", kernel)
+    monkeypatch.setattr(fused_render, "fused_render_reference", plain)
+    table = torch.zeros((3, 4, 4, 16)).as_subclass(FakeCuda)
+    z = torch.zeros((2, 3))
+    out, aux = fused_render.fused_render_rays(
+        table, None, torch.zeros((2, 3)), torch.zeros((2, 3)), z, None,
+        np.zeros(24, np.float32), align_corners=True, avg=True,
+        sigma_only=True)
+    assert out == "kernel" and aux == {"overflow_frac": 0.0}
+    assert calls == [{"align_corners": True, "avg": True,
+                      "sigma_only": True}]
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    from nvsr_tpu_torch import kernels
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.triplane_render(torch.zeros((3, 4, 4, 16)), None, None,
+                                None, torch.zeros((2, 3)), None, None,
+                                align_corners=True, avg=True,
+                                sigma_only=True)
