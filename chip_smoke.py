@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port (nvsr_tpu_torch) on one GPU.
 
 Run from the repository root on a machine with an NVIDIA H100 and the
-CUDA toolkit:  python3 chip_smoke.py
+CUDA toolkit:  python3 chip_smoke.py  (add --profile to also trace one
+HR/SR and one LR training step with torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
@@ -18,7 +19,19 @@ Phases (any failure raises and the script exits non-zero):
   4. the committed trained gate scene through the kernel and the plain
      version (PSNR vs its ground truth, kernel vs plain >= 45 dB), and
      through the f32 reference path (the JAX reference reaches 39.593 dB
-     on it on the CPU).
+     on it on the CPU);
+  5. training (TrainModels stage 1 at full width, nerf.train.tiled_gather
+     on): the trainable plane sampler's forward and backward kernels
+     against their plain versions at the coarse pass's shapes (4096 rays
+     x 16 samples on 3x48x200^2 planes), timed beside F.grid_sample; the
+     first HR/SR and LR steps through the kernels and through the plain
+     sampler (losses must agree); then, with launch counts zeroed, 3
+     HR/SR steps (EDSR 256x32 x4 bf16 trained, fine pass on the SR'd
+     800^2 planes) and 3 LR steps, each followed by the Adam updates of
+     the decoders, the SR net and the planes.
+Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
+operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
+core, 67 TFLOP/s f32), counted from this run's shapes.
 The last two lines are the kernels JSON and the result JSON.
 """
 
@@ -40,10 +53,48 @@ MEAN_ABS_TOL = 2e-3
 GATE_PSNR_MIN_DB = 45.0       # kernel vs plain frame (bench.py's gate)
 GATE_REF_PSNR_DB = 39.593     # JAX reference path vs gt, CPU
 RAY_BLOCK = 8192
+# the trainable sampler: the forward repeats its plain version's rounding
+# step for step (bit-equal); the backward adds with atomics in another
+# order than index_add_ (f32 summation order only)
+SAMPLE_FWD_TOL = 0.0
+SAMPLE_BWD_MAX_TOL, SAMPLE_BWD_MEAN_TOL = 1e-4, 1e-6
+# a training step through the kernels vs the plain sampler: the same
+# forward bit for bit, so the same loss up to the nondeterministic order
+# of the SR net's cuDNN kernels; the planes' gradients differ by the two
+# backwards' f32 summation orders (atomics, index_add_)
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_RTOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+BF16_TC_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def bound(nbytes, ops, peak_ops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def render_bound(args, sigma_only):
+    """Bound of one triplane_render call: every input read once, the
+    output written once; the decoder's multiply-adds at the bf16 tensor
+    core rate."""
+    table, packed, origins, directions, z, view = args[:6]
+    r, s = z.shape
+    ins = [table, origins, directions, z, packed.w, packed.b, packed.wh,
+           packed.bh] + ([] if sigma_only else [view])
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + r * s * 16
+    flops = 0
+    for branch, _, _, k, _ in packed.layers():
+        if branch == "density" or not sigma_only:
+            flops += 2 * k * 128
+    flops += 2 * 128 * (1 if sigma_only else 4)
+    return bound(nbytes, flops * r * s, BF16_TC_FLOPS)
 
 
 def cuda_ms(fn, warmup=2, reps=10):
@@ -166,7 +217,328 @@ def psnr(a, b):
     return float(mse2psnr(torch.mean((a.float() - b.float()) ** 2)))
 
 
-def main():
+# TrainModels stage 1 (configs/TrainModels.yml, bench.py:417-496 occ16):
+# 4096 rays of 8x8 tiles, 16+16 samples, 3x48x200^2 planes, 48x32^2 view
+# plane, EDSR 256 wide x 32 blocks x4 bf16, on 800x800 views
+TRAIN_FULL = dict(rays=4096, samples=16, channels=48, res=200, view_res=32,
+                  sr_hidden=256, sr_blocks=32, sr_scale=4, image=800)
+
+
+class PlainSampler:
+    """Inside the block, the trainable sampler's dispatch sends CUDA
+    tensors to its plain versions: the comparison run only. The port
+    itself never does this."""
+
+    def __enter__(self):
+        from nvsr_tpu_torch.ops import plane_sample as ps
+        self.ps = ps
+        self.saved = ps.sample_forward, ps.sample_backward
+        ps.sample_forward = ps.plane_sample_reference
+        ps.sample_backward = ps.plane_sample_backward_reference
+
+    def __exit__(self, *exc):
+        self.ps.sample_forward, self.ps.sample_backward = self.saved
+
+
+def sampler_checks(dev, planes_pos, grids, dout):
+    """The two sampler kernels against their plain versions at the
+    coarse pass's shapes, timed beside F.grid_sample -> kernel entries."""
+    import torch
+    import torch.nn.functional as F
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    from nvsr_tpu_torch.ops.fused_render import build_plane_table
+    p, c, h, w = planes_pos.shape
+    n = grids.shape[1]
+    table = build_plane_table(planes_pos)
+    fwd = kernels.plane_sample_forward(table, grids, c, align_corners=True)
+    fwd_ref = ps.plane_sample_reference(table, grids, c, True)
+    bwd = kernels.plane_sample_backward(dout, grids, h, w,
+                                        align_corners=True)
+    bwd_ref = ps.plane_sample_backward_reference(dout, grids, h, w, True)
+    torch.cuda.synchronize()
+    for t in (fwd, bwd):
+        if not torch.isfinite(t).all():
+            fail("plane_sample: non-finite kernel output")
+    e_f, e_b = (fwd - fwd_ref).abs(), (bwd - bwd_ref).abs()
+
+    g4 = grids.reshape(p, 1, n, 2)
+    x = planes_pos.detach().requires_grad_(True)
+
+    def lib_fwd():
+        return F.grid_sample(x, g4, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    y = lib_fwd()
+    cot = dout.permute(0, 2, 1).reshape(p, c, 1, n).contiguous()
+    ms = {
+        "fwd": cuda_ms(lambda: kernels.plane_sample_forward(
+            table, grids, c, align_corners=True), warmup=3, reps=20),
+        "fwd_plain": cuda_ms(lambda: ps.plane_sample_reference(
+            table, grids, c, True), warmup=1, reps=5),
+        "fwd_lib": cuda_ms(lambda: lib_fwd().detach(), warmup=3, reps=20),
+        "bwd": cuda_ms(lambda: kernels.plane_sample_backward(
+            dout, grids, h, w, align_corners=True), warmup=3, reps=20),
+        "bwd_plain": cuda_ms(lambda: ps.plane_sample_backward_reference(
+            dout, grids, h, w, True), warmup=1, reps=5),
+        "bwd_lib": cuda_ms(lambda: torch.autograd.grad(
+            y, x, cot, retain_graph=True), warmup=3, reps=20),
+        "fwdbwd_lib": cuda_ms(lambda: torch.autograd.grad(
+            lib_fwd(), x, cot), warmup=3, reps=20),
+    }
+    f32 = 4
+    # forward: 4 products, 2 sums, 2 roundings, 2 products, 1 sum per
+    # output value; backward: 4 products, 2 roundings, 4 adds per dout
+    b_f = bound(p * n * c * f32 + table.numel() * 2 + grids.numel() * f32,
+                11 * p * n * c, F32_FLOPS)
+    b_b = bound(dout.numel() * f32 + grids.numel() * f32
+                + p * c * h * w * f32, 10 * p * n * c, F32_FLOPS)
+    shape = f"P={p}, N={n}, C={c}, {h}x{w} planes"
+    print(f"[train] plane_sample_fwd ({shape}): max err "
+          f"{e_f.max().item():.3e}, mean {e_f.mean().item():.3e} (tol "
+          f"{SAMPLE_FWD_TOL}); kernel {ms['fwd']:.4f} ms, plain "
+          f"{ms['fwd_plain']:.4f} ms, F.grid_sample {ms['fwd_lib']:.4f} ms; "
+          f"bound {b_f[0]:.4f} ms by {b_f[1]} ({b_f[0] / ms['fwd']:.1%})")
+    print(f"[train] plane_sample_bwd ({shape}): max err "
+          f"{e_b.max().item():.3e}, mean {e_b.mean().item():.3e} (tol max "
+          f"{SAMPLE_BWD_MAX_TOL}, mean {SAMPLE_BWD_MEAN_TOL}); kernel "
+          f"{ms['bwd']:.4f} ms, plain {ms['bwd_plain']:.4f} ms, grid_sample "
+          f"backward {ms['bwd_lib']:.4f} ms (forward+backward "
+          f"{ms['fwdbwd_lib']:.4f} ms); bound {b_b[0]:.4f} ms by {b_b[1]} "
+          f"({b_b[0] / ms['bwd']:.1%})")
+    if e_f.max() > SAMPLE_FWD_TOL:
+        fail("plane_sample_fwd disagrees with its plain version")
+    if e_b.max() > SAMPLE_BWD_MAX_TOL or e_b.mean() > SAMPLE_BWD_MEAN_TOL:
+        fail("plane_sample_bwd disagrees with its plain version")
+    src = "nvsr_tpu_torch/csrc/plane_sample.cu"
+    return {
+        "plane_sample_fwd": {
+            "name": "plane_sample_fwd", "route": "cuda", "source": src,
+            "replaces": "nvsr_tpu/ops/pallas/tile_sampler.py:311",
+            "max_abs_err": e_f.max().item(), "ms": ms["fwd"],
+            "plain_ms": ms["fwd_plain"], "bound_ms": b_f[0],
+            "bound_by": b_f[1], "library_ms": ms["fwd_lib"]},
+        "plane_sample_bwd": {
+            "name": "plane_sample_bwd", "route": "cuda", "source": src,
+            "replaces": "nvsr_tpu/ops/pallas/tile_sampler.py:1801",
+            "max_abs_err": e_b.max().item(), "ms": ms["bwd"],
+            "plain_ms": ms["bwd_plain"], "bound_ms": b_b[0],
+            "bound_by": b_b[1], "library_ms": ms["bwd_lib"]}}
+
+
+def profile_step(step, batch, kind):
+    """One training step (train_step alone) under torch.profiler: its
+    kernels by device time, and device time against the step's wall
+    time (the profiler slows the host, not the device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rays, tgt = batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(kind, rays, tgt, 20)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device-side events only: an operator's row repeats the device
+    # time of the kernels it launched
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"[profile] {kind} step: device {dev_ms:.2f} ms in "
+          f"{sum(e.count for e in kern)} kernel launches, wall {wall:.2f} "
+          f"ms under the profiler")
+    for e in kern[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
+    """Phase 5 (see the module docstring). With on_card=False (a CPU
+    rehearsal at a small `w`) the kernel checks and launch counts are
+    skipped and every step runs the plain versions. profile: after the
+    phase, one HR/SR and one LR step under torch.profiler."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig,
+                                                init_plane_sr_params)
+    from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
+                                                init_decoder_params,
+                                                make_rot_mats,
+                                                project_to_planes)
+    from nvsr_tpu_torch.ops.geometry import normalize_coords
+    from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
+    from nvsr_tpu_torch.ops.sampling import stratified_z_vals
+    from nvsr_tpu_torch.planes_store import PlanesOptimizer
+    from nvsr_tpu_torch.render import (RenderConfig, build_sampled_rays,
+                                       tighten_bundle)
+    from nvsr_tpu_torch.train import (ModuleOptimizer, StepFlags,
+                                      choose_tile_pixels, train_step)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c, s = w["channels"], w["samples"]
+    gen = torch.Generator().manual_seed(1)
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, num_plane_channels=c,
+                         gather_table_dtype="bfloat16")
+    sr_cfg = PlaneSRConfig(in_channels=c, out_channels=c,
+                           hidden_size=w["sr_hidden"],
+                           n_blocks=w["sr_blocks"],
+                           scale_factor=w["sr_scale"],
+                           compute_dtype="bfloat16")
+    dc = init_decoder_params(gen, cfg, dev)
+    df = init_decoder_params(gen, cfg, dev)
+    sr = init_plane_sr_params(gen, sr_cfg, dev)
+    planes = {"pos": (0.03 * torch.randn((3, c, w["res"], w["res"]),
+                                         generator=gen)).to(dev),
+              "view": (0.03 * torch.randn((c, w["view_res"], w["view_res"]),
+                                          generator=gen)).to(dev)}
+    box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
+                    [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    img = w["image"]
+    focal = 0.5 * img / np.tan(0.3)
+    rng = np.random.default_rng(0)
+    views = rng.uniform(size=(img, img, 3)).astype(np.float32)
+    pose = torch.as_tensor(c2w, device=dev)
+
+    def batch():
+        rows, cols, tgt = choose_tile_pixels(rng, views, w["rays"], (8, 8))
+        rays = build_sampled_rays(pose, rows, cols, img, img, focal, 0.0,
+                                  2.0, 6.0, use_viewdirs=True)
+        return tighten_bundle(rays, occ), torch.as_tensor(tgt, device=dev)
+
+    rcfg = RenderConfig(num_coarse=s, num_fine=s, perturb=True,
+                        radiance_field_noise_std=0.2)
+    tile = TileSamplerConfig(tile_rays=64)
+    flags = {"HR/SR": StepFlags(sr_iter=True, tile_cfg=tile),
+             "LR": StepFlags(sr_iter=False, tile_cfg=tile)}
+
+    def step(kind, rays, target, seed):
+        fl = flags[kind]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return train_step(dc, df, sr if fl.sr_iter else None, planes, box,
+                          rays, target, g, model_cfg=cfg, sr_cfg=sr_cfg,
+                          rcfg=rcfg, flags=fl)
+
+    rays0, tgt0 = batch()
+    entries = {}
+    if on_card:
+        with torch.no_grad():
+            z = stratified_z_vals(
+                rays0.near, rays0.far, s, lindisp=False, perturb=True,
+                generator=torch.Generator(device=dev).manual_seed(4))
+            pts = rays0.origins[:, None] + rays0.directions[:, None] \
+                * z[..., None]
+            xyz = normalize_coords(pts.reshape(-1, 3),
+                                   torch.as_tensor(box[:, :3], device=dev))
+            grids = project_to_planes(xyz, make_rot_mats(3)).contiguous()
+            dout = torch.randn((3, grids.shape[1], c),
+                               generator=torch.Generator().manual_seed(5)
+                               ).to(dev)
+        entries = sampler_checks(dev, planes["pos"], grids, dout)
+
+    # the first step of each kind through the kernels and the plain
+    # sampler, on the same batch and seed, in turns
+    for kind in ("HR/SR", "LR"):
+        step(kind, rays0, tgt0, 3)
+        times, losses, dpos = {"kernels": [], "plain": []}, {}, {}
+        for route in ("plain", "kernels", "kernels", "plain"):
+            ctx = PlainSampler() if route == "plain" \
+                else contextlib.nullcontext()
+            sync()
+            t0 = time.perf_counter()
+            with ctx:
+                m, grads = step(kind, rays0, tgt0, 3)
+                loss = float(m["loss"])
+            sync()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            losses.setdefault(route, loss)
+            dpos.setdefault(route, grads["planes"]["pos"])
+            del grads
+        rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+        g_rel = ((dpos["kernels"] - dpos["plain"]).abs().max()
+                 / dpos["plain"].abs().max()).item()
+        print(f"[train] first {kind} step, kernels vs plain sampler: loss "
+              f"{losses['kernels']:.9f} vs {losses['plain']:.9f} (rel diff "
+              f"{rel:.2e}, tol {STEP_LOSS_RTOL}); planes grad max diff "
+              f"{g_rel:.2e} of its largest (tol {STEP_GRAD_RTOL}); step "
+              f"{min(times['kernels']):.2f} vs {min(times['plain']):.2f} ms "
+              f"(best of 2 each, in turns)")
+        if not (rel <= STEP_LOSS_RTOL and g_rel <= STEP_GRAD_RTOL):
+            fail(f"{kind} step: kernel and plain steps disagree")
+
+    # the training path once: 3 HR/SR + 3 LR steps with Adam updates
+    opts = {"dc": ModuleOptimizer(dc, 5e-4), "df": ModuleOptimizer(df, 5e-4),
+            "sr": ModuleOptimizer(sr, 5e-5)}
+    popt = PlanesOptimizer({"scene": planes}, 5e-4)
+
+    def watched():
+        return {"dc": dc["members"][0]["density"][0]["w"],
+                "df": df["members"][0]["rgb"][0]["w"],
+                "sr": sr["inner"]["blocks"][0]["conv1"]["w"],
+                "planes.pos": planes["pos"], "planes.view": planes["view"]}
+
+    before = {k: v.clone() for k, v in watched().items()}
+    mine = (kernels.plane_sample_fwd, kernels.plane_sample_bwd)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    sync()
+    times, peak = {"HR/SR": [], "LR": []}, {}
+    for i, kind in enumerate(["HR/SR"] * 3 + ["LR"] * 3):
+        rays, tgt = batch()
+        if on_card and not times[kind]:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        m, grads = step(kind, rays, tgt, 10 + i)
+        for name, opt in opts.items():
+            if name in grads:
+                opt.accumulate(grads[name])
+                opt.step()
+        popt.apply_grads("scene", grads["planes"])
+        loss = float(m["loss"])
+        sync()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        if on_card:
+            peak[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[train] step {i} ({kind}): loss {loss:.6f}, psnr "
+              f"{float(m['psnr']):.3f} dB, overflow_frac "
+              f"{m.get('overflow_frac')}, {times[kind][-1]:.2f} ms")
+        if not np.isfinite(loss):
+            fail(f"step {i}: non-finite loss")
+    launches = {k.symbol: k.launches for k in mine}
+    moved = {k: not torch.equal(v, before[k]) for k, v in watched().items()}
+    for kind, ts in times.items():
+        med = sorted(ts)[len(ts) // 2]
+        print(f"[train] {kind} step (train_step + Adam updates): median of "
+              f"{len(ts)} {med:.2f} ms (all {[round(x, 2) for x in ts]}); "
+              f"peak memory {peak.get(kind, float('nan')):.2f} GiB")
+    print(f"[train] launches {launches}; parameters moved {moved}")
+    if not all(moved.values()):
+        fail(f"a trained group did not change: {moved}")
+    if on_card:
+        if min(launches.values()) == 0:
+            fail(f"a kernel of the training path was never launched: "
+                 f"{launches}")
+        for name in launches:
+            entries[name]["launches"] = launches[name]
+    if profile:
+        for kind in ("HR/SR", "LR"):
+            profile_step(step, batch, kind)
+    return entries
+
+
+def main(profile=False):
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -291,13 +663,18 @@ def main():
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
             if not (err.max() <= MAX_ABS_TOL and err.mean() <= MEAN_ABS_TOL):
                 fail(f"{name} disagrees with its plain version")
+            b_ms, b_by = render_bound(args, so)
+            print(f"[check] {name}: bound {b_ms:.4f} ms by {b_by} "
+                  f"({b_ms / ms:.1%} of it); no single PyTorch call "
+                  f"computes gather + decoder")
             entries[name] = {"name": name, "route": "cuda",
                              "source": "nvsr_tpu_torch/csrc/"
                                        "triplane_render.cu",
                              "replaces": "nvsr_tpu/ops/pallas/"
                                          "tile_sampler.py:904",
                              "max_abs_err": err.max().item(), "ms": ms,
-                             "plain_ms": plain_ms}
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": None}
         # sigma_only sigma == full-decode sigma, bit for bit
         so_out = kernels.triplane_render(*fine_args, align_corners=True,
                                          avg=True, sigma_only=True)
@@ -310,6 +687,8 @@ def main():
               "yes")
 
         # -- 3. the main path once ---------------------------------------
+        frame_kernels = (kernels.triplane_render_full,
+                         kernels.triplane_render_sigma_only)
         for k in kernels.KERNELS:
             k.launches = 0
         torch.cuda.synchronize()
@@ -323,7 +702,7 @@ def main():
                            occ_aabb=occ, tile=16)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
-        launches = {k.symbol: k.launches for k in kernels.KERNELS}
+        launches = {k.symbol: k.launches for k in frame_kernels}
         rgb = res.fine.rgb
         print(f"[main] SR + 800x800 frame in {main_s:.3f} s (first run); "
               f"launches {launches}; aux {res.aux}")
@@ -399,13 +778,20 @@ def main():
                 and abs(p_r - GATE_REF_PSNR_DB) < 0.05):
             fail("gate scene check failed")
 
+    # -- 5. training ------------------------------------------------------
+    entries.update(train_phase(dev, camera([3.8, 0.5, 0.7]),
+                               profile=profile))
+
     print(card)
     print(json.dumps({"kernels": [entries["triplane_render_sigma_only"],
-                                  entries["triplane_render_full"]]}))
+                                  entries["triplane_render_full"],
+                                  entries["plane_sample_fwd"],
+                                  entries["plane_sample_bwd"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    # --profile: also profile one HR/SR and one LR training step
+    main(profile="--profile" in sys.argv[1:])

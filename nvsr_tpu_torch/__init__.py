@@ -6,7 +6,11 @@ its counterpart's module name and is held against it by the
 `jax` or `nvsr_tpu` (importing `nvsr_tpu` imports JAX).
 
 Ported so far: the eval render of a super-resolved scene
-(`render.render_image` with triplane point functions, EDSR plane SR), and
+(`render.render_image` with triplane point functions, EDSR plane SR), with
 the TPU gather+decode megakernel as the hand-written Hopper kernel
-`csrc/triplane_render.cu` (host side in `ops/fused_render.py`).
+`csrc/triplane_render.cu` (host side in `ops/fused_render.py`); and the
+TrainModels training step (`train.train_step`, its optimizers, the
+plane-SR backward with remat), with the trainable plane sampler's forward
+and backward as the Hopper kernels `csrc/plane_sample.cu` (host side in
+`ops/plane_sample.py`).
 """

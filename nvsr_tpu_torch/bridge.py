@@ -15,7 +15,7 @@ import torch
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
 
 
-def _to_torch(tree, device=None):
+def _to_torch(tree, device):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -23,17 +23,24 @@ def _to_torch(tree, device=None):
     return torch.as_tensor(np.array(tree), dtype=torch.float32, device=device)
 
 
-def decoder_from_jax(tree, device=None):
+def decoder_from_jax(tree, device="cuda"):
     """Triplane decoder pytree {"members": [{"density": [{"w", "b"}, ...],
     "fc_alpha", "rgb": [...], "fc_rgb"}]} (numpy or jax leaves) -> the
-    same structure of f32 tensors on `device`."""
+    same structure of f32 tensors on `device` (the card unless the
+    caller names another)."""
     return _to_torch(tree, device)
 
 
-def plane_sr_from_jax(tree, device=None):
+def plane_sr_from_jax(tree, device="cuda"):
     """Plane-SR params {"inner": {"conv_input", "blocks": [{"conv1",
     "conv2"}], "conv_mid", "upscale": [...], "conv_output"}, "norm"?} ->
-    the same structure of f32 tensors (conv weights OIHW)."""
+    the same structure of f32 tensors (conv weights OIHW) on `device`."""
+    return _to_torch(tree, device)
+
+
+def planes_from_jax(tree, device="cuda"):
+    """A scene's plane dict {"pos": [P, C, H, W], "view": [Cv, Hv, Wv]?}
+    -> the same dict of f32 tensors on `device`."""
     return _to_torch(tree, device)
 
 

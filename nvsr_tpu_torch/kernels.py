@@ -115,13 +115,22 @@ triplane_render_full = CudaKernel(
     "triplane_render.cu", "triplane_render_full", _TRIPLANE_ARGS)
 triplane_render_sigma_only = CudaKernel(
     "triplane_render.cu", "triplane_render_sigma_only", _TRIPLANE_ARGS)
-KERNELS = (triplane_render_full, triplane_render_sigma_only)
+plane_sample_fwd = CudaKernel(
+    "plane_sample.cu", "plane_sample_fwd",
+    [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P])
+plane_sample_bwd = CudaKernel(
+    "plane_sample.cu", "plane_sample_bwd",
+    [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+KERNELS = (triplane_render_full, triplane_render_sigma_only,
+           plane_sample_fwd, plane_sample_bwd)
 
 
-def _check(t, name, dtype, device, shape=None):
+def _check(t, name, dtype, device, shape=None, aligned=False):
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device}")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name}: need a 16-byte aligned tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: need shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
@@ -165,4 +174,58 @@ def triplane_render(table, packed, origins, directions, z_vals, view, geom,
              packed.wh.data_ptr(), packed.bh.data_ptr(), packed.n_density,
              packed.n_rgb, packed.skip_every, ctypes.cast(g, _P),
              int(align_corners), int(avg), out.data_ptr(), stream)
+    return out
+
+
+_INT_MAX = 2 ** 31 - 1
+
+
+def plane_sample_forward(table, grids, channels: int, *,
+                         align_corners: bool) -> torch.Tensor:
+    """Launch plane_sample_fwd (csrc/plane_sample.cu) on the current
+    stream: bf16 table [P, H, W, Cp] at grids [P, N, 2] f32 -> [P, N,
+    channels] f32 (see ops/plane_sample.py for the math)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("plane_sample_forward needs CUDA tensors")
+    p, h, w, cp = table.shape
+    n = grids.shape[1]
+    _check(table, "table", torch.bfloat16, dev, aligned=True)
+    _check(grids, "grids", torch.float32, dev, (p, n, 2), aligned=True)
+    if channels % 8 or cp % 8 or channels > cp:
+        raise ValueError(f"channels {channels} / table width {cp}: the "
+                         f"kernel needs multiples of 8, channels <= width")
+    if p * n * channels > _INT_MAX or p * h * w * cp > _INT_MAX:
+        raise ValueError("plane_sample_forward: tensors too large")
+    out = torch.empty((p, n, channels), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plane_sample_fwd(table.data_ptr(), p, h, w, cp, channels,
+                         grids.data_ptr(), n, int(align_corners),
+                         out.data_ptr(), stream)
+    return out
+
+
+def plane_sample_backward(dout, grids, height: int, width: int, *,
+                          align_corners: bool) -> torch.Tensor:
+    """Launch plane_sample_bwd (csrc/plane_sample.cu) on the current
+    stream: dout [P, N, C] f32 at grids [P, N, 2] -> dplanes [P, C, H, W]
+    f32, accumulated with atomics (summation order varies by run)."""
+    dev = dout.device
+    if dev.type != "cuda":
+        raise ValueError("plane_sample_backward needs CUDA tensors")
+    p, n, c = dout.shape
+    _check(dout, "dout", torch.float32, dev, aligned=True)
+    _check(grids, "grids", torch.float32, dev, (p, n, 2), aligned=True)
+    if p * n * c > _INT_MAX or p * height * width * c > _INT_MAX:
+        raise ValueError("plane_sample_backward: tensors too large")
+    scratch = torch.empty((p, height, width, c), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((p, c, height, width), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plane_sample_bwd(dout.data_ptr(), grids.data_ptr(), p, n, c, height,
+                         width, int(align_corners), scratch.data_ptr(),
+                         out.data_ptr(), stream)
     return out

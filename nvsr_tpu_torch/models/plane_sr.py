@@ -1,9 +1,12 @@
-"""Feature-plane super-resolution, EDSR eval forward (counterpart of
-nvsr_tpu/models/plane_sr.py).
+"""Feature-plane super-resolution, EDSR (counterpart of
+nvsr_tpu/models/plane_sr.py): init, the forward for eval and training
+(input/output noise, the per-plane training trunk, per-block
+rematerialization through torch.utils.checkpoint).
 
 Parameters keep the JAX pytree layout with OIHW conv weights
-(`bridge.plane_sr_from_jax`). Convolutions are `F.conv2d` (cuDNN on the
-card): the JAX package runs them in XLA, not in a hand-written kernel.
+(`bridge.plane_sr_from_jax`, `init_plane_sr_params`). Convolutions are
+`F.conv2d` (cuDNN on the card): the JAX package runs them in XLA, not in
+a hand-written kernel.
 A bfloat16 compute_dtype casts operands to bf16; the conv accumulates in
 f32 and rounds its output to bf16 once per layer, and the trunk then
 stays bf16 (residual sums included) as in the JAX module. Whether f32
@@ -20,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nvsr_tpu_torch.ops.resize import upsample_plane
 
@@ -58,9 +62,9 @@ def edsr_layer_plan(n_blocks: int, scale_factor: int,
 
 @dataclasses.dataclass(frozen=True)
 class PlaneSRConfig:
-    """The fields of the JAX PlaneSRConfig that the eval forward reads
-    (the training-only noise, tiling, remat and conv-lowering options are
-    not ported: tiling and conv lowering do not change the result)."""
+    """The fields of the JAX PlaneSRConfig that the EDSR forward reads
+    (tile_size and conv_impl are not ported: neither changes the
+    result; SRResNet waits)."""
     arch: str = "EDSR"
     in_channels: int = 48
     out_channels: int = 48
@@ -71,7 +75,17 @@ class PlaneSRConfig:
     plane_interp: str = "bilinear"       # residual-upsample mode
     align_corners: bool = True
     input_normalization: bool = False
+    sr_input_noise: float = 0.0
+    sr_output_noise: float = 0.0
     compute_dtype: Optional[str] = None
+    # recompute each residual block (remat_every > 1: each segment of
+    # that many blocks) in the backward instead of storing its
+    # activations; takes effect only where gradients are recorded
+    remat: bool = True
+    remat_every: int = 1
+    # training: all planes through the trunk as one batch, instead of
+    # one plane at a time
+    train_batch: bool = False
 
     def _padding_raw(self) -> float:
         if self.arch != "EDSR":
@@ -93,6 +107,46 @@ class PlaneSRConfig:
             raw * self.scale_factor)
 
 
+def _init_conv(generator, in_ch: int, out_ch: int, k: int, device):
+    """The reference PlanesSR conv init: N(0, sqrt(2/n)/10), n = k*k*out,
+    no bias; OIHW."""
+    std = math.sqrt(2.0 / (k * k * out_ch)) / 10.0
+    return {"w": (torch.randn((out_ch, in_ch, k, k), generator=generator,
+                              device=generator.device) * std).to(device)}
+
+
+def init_edsr_params(generator: torch.Generator, cfg: PlaneSRConfig,
+                     device="cuda"):
+    """EDSR parameter pytree drawn from `generator`, on `device`."""
+    plan = edsr_layer_plan(cfg.n_blocks, cfg.scale_factor,
+                           cfg.receptive_field_bound)
+    hs = cfg.hidden_size
+
+    def conv(i, o, k):
+        return _init_conv(generator, i, o, k, device)
+
+    return {"conv_input": conv(cfg.in_channels, hs, plan["conv_input"]),
+            "blocks": [{"conv1": conv(hs, hs, k), "conv2": conv(hs, hs, k)}
+                       for k in plan["blocks"]],
+            "conv_mid": conv(hs, hs, plan["conv_mid"]),
+            "upscale": [conv(hs, 4 * hs, k) for k in plan["upscale"]],
+            "conv_output": conv(hs, cfg.out_channels, plan["conv_output"])}
+
+
+def init_plane_sr_params(generator: torch.Generator, cfg: PlaneSRConfig,
+                         device="cuda"):
+    """{"inner": EDSR params, "norm"?}: with input_normalization the
+    norm entry is NaN until it is filled from the corpus statistics, as
+    in the JAX module."""
+    if cfg.arch != "EDSR":
+        raise NotImplementedError(f"SR arch {cfg.arch!r} is not ported yet")
+    params = {"inner": init_edsr_params(generator, cfg, device)}
+    if cfg.input_normalization:
+        nan = torch.full((cfg.in_channels,), float("nan"), device=device)
+        params["norm"] = {"mean": nan, "std": nan.clone()}
+    return params
+
+
 def _conv(p, x, compute_dtype=None):
     """VALID conv of NCHW x with OIHW p["w"] (+ p["b"])."""
     w = p["w"]
@@ -105,47 +159,79 @@ def _conv(p, x, compute_dtype=None):
     return y
 
 
-def apply_edsr(params, cfg: PlaneSRConfig, x):
-    """[N, C, H, W] (pre-padded) -> [N, C, H', W'] VALID-conv EDSR:
-    residual blocks crop their identity path by the VALID margin and
-    scale the residual by 0.1; PixelShuffle upscaling ends the trunk."""
-    cd = cfg.compute_dtype
-    h = _conv(params["conv_input"], x, cd)
-    # 0.1 in the activation dtype (bf16(0.1) for a bf16 trunk, as JAX
-    # rounds the weakly typed constant)
-    scale = h.new_tensor(0.1)
-    for blk in params["blocks"]:
+def _edsr_blocks(blocks, h, cd):
+    for blk in blocks:
         k_sz = blk["conv1"]["w"].shape[-1]
         m = 2 * (k_sz // 2)
         identity = h if m == 0 else h[:, :, m:-m, m:-m]
         y = _conv(blk["conv2"], torch.relu(_conv(blk["conv1"], h, cd)), cd)
-        h = identity + scale * y
+        # 0.1 in the activation dtype (bf16(0.1) for a bf16 trunk, as
+        # JAX rounds the weakly typed constant)
+        h = identity + h.new_tensor(0.1) * y
+    return h
+
+
+def apply_edsr(params, cfg: PlaneSRConfig, x):
+    """[N, C, H, W] (pre-padded) -> [N, C, H', W'] VALID-conv EDSR:
+    residual blocks crop their identity path by the VALID margin and
+    scale the residual by 0.1; PixelShuffle upscaling ends the trunk.
+    With cfg.remat and gradients recorded, each segment of
+    cfg.remat_every blocks is recomputed in the backward."""
+    cd = cfg.compute_dtype
+    h = _conv(params["conv_input"], x, cd)
+    blocks = params["blocks"]
+    if cfg.remat and torch.is_grad_enabled():
+        seg = max(1, cfg.remat_every)
+        for i in range(0, len(blocks), seg):
+            h = checkpoint(_edsr_blocks, blocks[i:i + seg], h, cd,
+                           use_reentrant=False)
+    else:
+        h = _edsr_blocks(blocks, h, cd)
     h = _conv(params["conv_mid"], h, cd)
     for up in params["upscale"]:
         h = F.pixel_shuffle(_conv(up, h, cd), 2)
     return _conv(params["conv_output"], h, cd)
 
 
-def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes):
-    """Eval super-resolution of feature planes: [P, C, H, W] ->
-    [P, C, sH, sW] = crop(EDSR(edge_pad(norm(planes)))) +
-    bilinear_up(planes); all planes run as one conv batch."""
+def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
+                   train: bool = False,
+                   generator: Optional[torch.Generator] = None):
+    """Super-resolution of feature planes: [P, C, H, W] -> [P, C, sH, sW]
+    = crop(EDSR(edge_pad(norm(planes + in_noise)))) + bilinear_up(planes)
+    (+ out_noise). Eval runs all planes as one conv batch; training
+    (train=True) runs them one at a time unless cfg.train_batch, and
+    with a generator adds sr_input_noise (std relative to the planes'
+    std) and sr_output_noise (relative to the detached EDSR output's)."""
     if cfg.arch != "EDSR":
         raise NotImplementedError(f"SR arch {cfg.arch!r} is not ported yet")
     if cfg.plane_interp != "bilinear":
         raise NotImplementedError(
             f"residual upsample mode {cfg.plane_interp!r} is not ported yet")
     x = lr_planes
+    noisy = train and generator is not None
+    if noisy and cfg.sr_input_noise > 0:
+        std = cfg.sr_input_noise * torch.std(x, correction=0)
+        x = x + std * torch.randn(x.shape, generator=generator,
+                                  dtype=x.dtype, device=x.device)
     if "norm" in params:
         x = (x - params["norm"]["mean"][None, :, None, None]) \
             / params["norm"]["std"][None, :, None, None]
     pad = cfg.required_padding
     if pad > 0:
         x = F.pad(x, (pad, pad, pad, pad), mode="replicate")
-    diff = apply_edsr(params["inner"], cfg, x)
+    if train and not cfg.train_batch:
+        diff = torch.cat([apply_edsr(params["inner"], cfg, x[i:i + 1])
+                          for i in range(x.shape[0])])
+    else:
+        diff = apply_edsr(params["inner"], cfg, x)
     over = cfg.hr_overpadding
     if over > 0:
         diff = diff[..., over:-over, over:-over]
     residual = upsample_plane(lr_planes, cfg.scale_factor,
                               align_corners=cfg.align_corners)
-    return diff + residual
+    out = diff + residual
+    if noisy and cfg.sr_output_noise > 0:
+        std = cfg.sr_output_noise * torch.std(diff.detach(), correction=0)
+        out = out + std * torch.randn(out.shape, generator=generator,
+                                      dtype=out.dtype, device=out.device)
+    return out

@@ -1,10 +1,12 @@
-"""Triplane scene model, reference (non-kernel) path (counterpart of
-nvsr_tpu/models/triplane.py).
+"""Triplane scene model (counterpart of nvsr_tpu/models/triplane.py):
+parameter init, the reference (non-kernel) path, and the kernel paths
+of `apply_triplane_rays_from_z` (the fused eval gather+decode, and the
+trainable plane sampler).
 
 Decoder parameters are the JAX pytree layout with torch tensors
-(`bridge.decoder_from_jax`): {"members": [{"density": [{"w", "b"}, ...],
-"fc_alpha", "rgb": [...], "fc_rgb"}]}, weights [in, out]. The fused
-kernel path (`apply_triplane_rays_from_z`) is held against this one.
+(`bridge.decoder_from_jax`, `init_decoder_params`): {"members":
+[{"density": [{"w", "b"}, ...], "fc_alpha", "rgb": [...], "fc_rgb"}]},
+weights [in, out]. The kernel paths are held against the reference one.
 """
 
 from __future__ import annotations
@@ -147,6 +149,57 @@ def make_rot_mats(num_planes: int, seed: int = 0) -> np.ndarray:
     return np.stack(mats).astype(np.float32)
 
 
+def _init_linear(generator, in_dim: int, out_dim: int, device):
+    """torch.nn.Linear's init: w, b ~ U(-1/sqrt(in), 1/sqrt(in))."""
+    bound = 1.0 / np.sqrt(in_dim)
+
+    def u(shape):
+        return ((torch.rand(shape, generator=generator,
+                            device=generator.device) * 2 - 1) * bound
+                ).to(device)
+
+    return {"w": u((in_dim, out_dim)), "b": u((out_dim,))}
+
+
+def init_decoder_params(generator: torch.Generator, cfg: TriplaneConfig,
+                        device="cuda"):
+    """Parameter pytree of one scene-shared decoder (`cfg.ensemble_size`
+    members), drawn from `generator` with the JAX init's distributions
+    (torch Linear bounds), on `device`."""
+    def branch(in_ch, n):
+        layers = [_init_linear(generator, in_ch, cfg.dec_channels, device)]
+        for layer_num in range(n - 1):
+            extra = in_ch if cfg.is_skip_layer(layer_num) else 0
+            layers.append(_init_linear(generator, cfg.dec_channels + extra,
+                                       cfg.dec_channels, device))
+        return layers
+
+    members = []
+    for _ in range(cfg.ensemble_size):
+        m = {"density": branch(cfg.density_in_channels,
+                               cfg.dec_density_layers),
+             "fc_alpha": _init_linear(generator, cfg.dec_channels, 1,
+                                      device)}
+        if "features" in cfg.rgb_dec_input:
+            m["fc_feat"] = _init_linear(generator, cfg.dec_channels,
+                                        cfg.num_plane_channels, device)
+        m["rgb"] = branch(cfg.rgb_in_channels, cfg.dec_rgb_layers)
+        m["fc_rgb"] = _init_linear(generator, cfg.dec_channels, 3, device)
+        members.append(m)
+    return {"members": members}
+
+
+def point_coords_noise(xyz, cfg: TriplaneConfig, plane_resolution: int,
+                       generator: torch.Generator):
+    """Train-time noise on normalized coords [N, 3]: a standard-normal
+    draw from `generator` times cfg.point_coords_noise * 2 / (1 +
+    plane_resolution)."""
+    assert plane_resolution is not None
+    std = cfg.point_coords_noise * 2.0 / (1 + plane_resolution)
+    return xyz + std * torch.randn(xyz.shape, generator=generator,
+                                   dtype=xyz.dtype, device=xyz.device)
+
+
 def project_to_planes(coords, rot_mats):
     """[N, 3] coords -> [P, N, 2] per-plane projections (columns 1:3)."""
     rot = torch.as_tensor(np.asarray(rot_mats), dtype=coords.dtype,
@@ -212,12 +265,18 @@ def _mlp_branch(layers, fc_out, x_in, cfg: TriplaneConfig):
     return x, _linear(fc_out, x, cfg.compute_dtype)
 
 
-def sample_planes(planes_pos, grids, cfg: TriplaneConfig):
+def sample_planes(planes_pos, grids, cfg: TriplaneConfig,
+                  trainable: bool = False):
     """[P, C, H, W] planes at [P, N, 2] grids -> [P, N, C] (bilinear,
-    taps rounded to cfg.gather_table_dtype)."""
+    taps rounded to cfg.gather_table_dtype). trainable: through the
+    trainable plane sampler's kernels instead (ops/plane_sample.py: bf16
+    taps and x-weights, bf16 rows, whatever gather_table_dtype says)."""
     if cfg.plane_interp != "bilinear":
         raise NotImplementedError(
             f"plane_interp={cfg.plane_interp!r} is not ported yet")
+    if trainable:
+        from nvsr_tpu_torch.ops.plane_sample import plane_sample
+        return plane_sample(planes_pos, grids, cfg.align_corners)
     return multi_plane_sample(planes_pos, grids,
                               align_corners=cfg.align_corners,
                               tap_dtype=torch_dtype(cfg.gather_table_dtype))
@@ -268,21 +327,32 @@ def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
 
 def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
                           xyz_raw, view_proj, *, member: int = 0,
-                          rot_mats=None, sigma_only: bool = False):
+                          noise_generator=None,
+                          plane_resolution: Optional[int] = None,
+                          rot_mats=None, sigma_only: bool = False,
+                          trainable: bool = False):
     """Forward on raw points [N, 3] with pre-sampled view features
-    [N, Cv] (or None) -> [N, 4]."""
+    [N, Cv] (or None) -> [N, 4]. With noise_generator, the normalized
+    coords get cfg.point_coords_noise (train time); trainable: see
+    sample_planes."""
     box = torch.as_tensor(box, dtype=xyz_raw.dtype, device=xyz_raw.device)
     xyz = normalize_coords(xyz_raw, box[:, :3])
+    if noise_generator is not None and cfg.point_coords_noise:
+        xyz = point_coords_noise(xyz, cfg, plane_resolution,
+                                 noise_generator)
     rot = rot_mats if rot_mats is not None else make_rot_mats(cfg.num_planes)
     grids = project_to_planes(xyz, rot)
-    pos_projs = sample_planes(planes_pos, grids, cfg)
+    pos_projs = sample_planes(planes_pos, grids, cfg, trainable)
     return decode_projections(params, cfg, pos_projs, view_proj,
                               member=member, sigma_only=sigma_only)
 
 
 def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                         box, pts, viewdirs, *, member: int = 0,
-                        rot_mats=None, sigma_only: bool = False):
+                        noise_generator=None,
+                        plane_resolution: Optional[int] = None,
+                        rot_mats=None, sigma_only: bool = False,
+                        trainable: bool = False):
     """Ray-structured forward: pts [R, S, 3] + per-ray viewdirs [R, 3] ->
     [R, S, 4]. The view plane is sampled once per ray and broadcast."""
     r, s, _ = pts.shape
@@ -293,8 +363,11 @@ def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                                               ).reshape(r * s, -1)
     out = apply_triplane_points(params, cfg, planes_pos, box,
                                 pts.reshape(-1, 3), view_proj,
-                                member=member, rot_mats=rot_mats,
-                                sigma_only=sigma_only)
+                                member=member,
+                                noise_generator=noise_generator,
+                                plane_resolution=plane_resolution,
+                                rot_mats=rot_mats, sigma_only=sigma_only,
+                                trainable=trainable)
     return out.reshape(r, s, 4)
 
 
@@ -302,13 +375,34 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
                                plane_view, box, origins, directions,
                                viewdirs, z_vals, *, member: int = 0,
                                rot_mats=None, table=None, packed=None,
-                               geom=None, sigma_only: bool = False):
-    """Fused forward straight from rays: origins/directions [R, 3],
-    z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}) through the
-    gather+decode kernel (ops/fused_render.py). `table`, `packed` and
-    `geom` are the per-scene plane table, packed decoder and kernel
-    geometry; built here when not given (make_triplane_point_fn builds
-    them once per point fn)."""
+                               geom=None, sigma_only: bool = False,
+                               trainable: bool = False,
+                               noise_generator=None,
+                               plane_resolution: Optional[int] = None):
+    """Kernel forward straight from rays: origins/directions [R, 3],
+    z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}).
+
+    Eval (default): the fused gather+decode kernel (ops/fused_render.py).
+    `table`, `packed` and `geom` are the per-scene plane table, packed
+    decoder and kernel geometry; built here when not given
+    (make_triplane_point_fn builds them once per point fn).
+
+    trainable: the training route, apply_triplane_rays on the points
+    o + d*z with the three positional-plane gathers through the trainable
+    plane sampler (ops/plane_sample.py: kernel forward and backward), the
+    view plane through the reference sampler and the decoder in plain
+    torch, all under autograd; noise_generator adds
+    cfg.point_coords_noise to the normalized coords."""
+    if trainable:
+        assert not sigma_only, "training needs coarse rgb"
+        pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+        return apply_triplane_rays(
+            params, cfg, planes_pos, plane_view, box, pts, viewdirs,
+            member=member, noise_generator=noise_generator,
+            plane_resolution=plane_resolution, rot_mats=rot_mats,
+            trainable=True), {"overflow_frac": 0.0}
+    assert noise_generator is None, \
+        "point_coords_noise requires the trainable route"
     from nvsr_tpu_torch.ops import fused_render
     if not fused_render.supports(cfg):
         raise ValueError(f"the fused triplane kernel does not support {cfg}")
@@ -329,3 +423,4 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
         table, packed, origins, directions, z_vals, view, geom,
         align_corners=cfg.align_corners,
         avg=cfg.proj_combination == "avg", sigma_only=sigma_only)
+

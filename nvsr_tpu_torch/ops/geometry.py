@@ -45,6 +45,25 @@ def get_ray_bundle(height: int, width: int, focal, c2w: torch.Tensor,
     return ray_origins, ray_directions
 
 
+def get_rays_at(rows, cols, height, width, focal, c2w: torch.Tensor,
+                downsampling_offset: float = 0.0):
+    """Ray origins and directions [N, 3] for the selected pixels only:
+    the same rays as get_ray_bundle(...)[rows, cols] without the full
+    H x W maps. rows/cols: integer index arrays or tensors [N]."""
+    rows = torch.as_tensor(rows, device=c2w.device)
+    cols = torch.as_tensor(cols, device=c2w.device)
+    x = cols.to(c2w.dtype) + downsampling_offset
+    y = rows.to(c2w.dtype) + downsampling_offset
+    directions = torch.stack([
+        (x - width * 0.5) / _focal_x(focal),
+        -(y - height * 0.5) / _focal_y(focal),
+        -torch.ones_like(x),
+    ], dim=-1)
+    ray_directions = torch.sum(directions[..., None, :] * c2w[:3, :3], dim=-1)
+    ray_origins = c2w[:3, -1].expand(ray_directions.shape)
+    return ray_origins, ray_directions
+
+
 def ndc_rays(height, width, focal, near, rays_o, rays_d):
     """Shift ray origins to the near plane and project to NDC space."""
     t = -(near + rays_o[..., 2]) / rays_d[..., 2]

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -13,6 +13,8 @@ class RenderOutputs(NamedTuple):
     acc: torch.Tensor      # [R]
     weights: torch.Tensor  # [R, S]
     depth: torch.Tensor    # [R]
+    # per-sample depths the weights refer to (return_z only)
+    z_vals: Optional[torch.Tensor] = None  # [R, S]
 
 
 def cumprod_exclusive(x):
@@ -22,13 +24,21 @@ def cumprod_exclusive(x):
 
 
 def volume_render(radiance_field, z_vals, ray_directions, *,
-                  white_background: bool = False) -> RenderOutputs:
+                  radiance_field_noise_std: float = 0.0,
+                  noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  white_background: bool = False,
+                  return_z: bool = False) -> RenderOutputs:
     """Composite [R, S, 4] (rgb logits, density logit) into per-ray maps.
 
     The last interval is 1e10, distances scale by |d|, weights use
     exp-transmittance with the +1e-10 floor. Rays with a zero z span
-    (occupancy's miss rays) composite to exact background. (The eval
-    render draws no density noise; the mip form is not ported yet.)
+    (occupancy's miss rays) composite to exact background.
+
+    Train-time density noise: with radiance_field_noise_std > 0, the
+    density logit gets std * noise, where `noise` [R, S] is the caller's
+    standard-normal draw or is drawn from `generator`; with neither, no
+    noise is added (an eval render). (The mip form is not ported yet.)
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(z_vals[..., :1], 1e10)],
@@ -36,7 +46,15 @@ def volume_render(radiance_field, z_vals, ray_directions, *,
     dists = dists * torch.linalg.norm(ray_directions, dim=-1, keepdim=True)
 
     rgb = torch.sigmoid(radiance_field[..., :3])
-    sigma = torch.relu(radiance_field[..., 3])
+    sigma_logit = radiance_field[..., 3]
+    if radiance_field_noise_std > 0.0 and (noise is not None
+                                           or generator is not None):
+        if noise is None:
+            noise = torch.randn(sigma_logit.shape, generator=generator,
+                                dtype=sigma_logit.dtype,
+                                device=sigma_logit.device)
+        sigma_logit = sigma_logit + radiance_field_noise_std * noise
+    sigma = torch.relu(sigma_logit)
 
     alpha = 1.0 - torch.exp(-sigma * dists)
     span = z_vals[..., -1] - z_vals[..., 0]
@@ -50,7 +68,8 @@ def volume_render(radiance_field, z_vals, ray_directions, *,
 
     if white_background:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
-    return RenderOutputs(rgb_map, disp_map, acc_map, weights, depth_map)
+    return RenderOutputs(rgb_map, disp_map, acc_map, weights, depth_map,
+                         z_vals if return_z else None)
 
 
 def img2mse(pred, target):

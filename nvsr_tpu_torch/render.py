@@ -1,5 +1,5 @@
-"""The eval render pipeline: rays -> coarse -> resample -> fine
-(counterpart of nvsr_tpu/render.py).
+"""The render pipeline: rays -> coarse -> resample -> fine, for eval
+frames and training batches (counterpart of nvsr_tpu/render.py).
 
 Point functions follow the JAX protocol: point_fn(pts [R, S, 3] | None,
 rays_block, z_vals) -> [R, S, 4]; a point fn with `consumes_rays` derives
@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from nvsr_tpu_torch.ops.geometry import ndc_rays
+from nvsr_tpu_torch.ops.geometry import get_rays_at, ndc_rays
 from nvsr_tpu_torch.ops.occupancy import tighten_near_far
 from nvsr_tpu_torch.ops.rendering import RenderOutputs, volume_render
 from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
@@ -31,8 +31,12 @@ class RenderConfig:
     perturb: bool = True
     lindisp: bool = False
     white_background: bool = False
+    radiance_field_noise_std: float = 0.0
     use_viewdirs: bool = True
+    stop_coarse_grad: bool = False
     ray_block: int = 4096          # rays per render block
+    # keep per-sample z in RenderOutputs.z_vals
+    keep_z: bool = False
 
 
 class RayBundle(NamedTuple):
@@ -72,6 +76,24 @@ def make_ray_bundle(ray_origins, ray_directions, near: float, far: float,
                      torch.full_like(rd[..., :1], far), viewdirs)
 
 
+def build_sampled_rays(pose, rows, cols, height: int, width: int, focal,
+                       downsampling_offset: float, near: float, far: float,
+                       *, use_viewdirs: bool, no_ndc: bool = True
+                       ) -> RayBundle:
+    """RayBundle for the selected pixels (rows, cols) of one view with
+    camera-to-world `pose` (a tensor on the device the rays go to): the
+    training batch, without the view's full ray maps."""
+    ro, rd = get_rays_at(rows, cols, height, width, focal, pose,
+                         downsampling_offset)
+    viewdirs = None
+    if use_viewdirs:
+        viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    if not no_ndc:
+        ro, rd = ndc_rays(height, width, focal, 1.0, ro, rd)
+    return RayBundle(ro, rd, torch.full_like(rd[..., :1], near),
+                     torch.full_like(rd[..., :1], far), viewdirs)
+
+
 def tighten_bundle(rays: RayBundle, aabb, tile_rays: Optional[int] = None
                    ) -> RayBundle:
     """Tighten per-ray [near, far] to the occupied AABB. With tile_rays
@@ -101,7 +123,10 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
                 ) -> RenderResult:
     """Coarse -> hierarchical resample -> fine for one ray batch.
     `generator` draws the stratified jitter and the fine-pass uniforms
-    when rcfg.perturb is set; an eval render draws nothing."""
+    when rcfg.perturb is set, and the density noise when
+    rcfg.radiance_field_noise_std is; an eval render draws nothing.
+    rcfg.stop_coarse_grad detaches the coarse radiance field (and so the
+    resampling weights) from the graph."""
     z_vals = stratified_z_vals(rays.near, rays.far, rcfg.num_coarse,
                                lindisp=rcfg.lindisp, perturb=rcfg.perturb,
                                generator=generator)
@@ -121,10 +146,16 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
         return out
 
     def composite(rf, z):
-        return volume_render(rf, z, rays.directions,
-                             white_background=rcfg.white_background)
+        return volume_render(
+            rf, z, rays.directions,
+            radiance_field_noise_std=rcfg.radiance_field_noise_std,
+            generator=generator, white_background=rcfg.white_background,
+            return_z=rcfg.keep_z)
 
-    out_c = composite(run_pass(point_fn_coarse, z_vals), z_vals)
+    rf_c = run_pass(point_fn_coarse, z_vals)
+    if rcfg.stop_coarse_grad:
+        rf_c = rf_c.detach()
+    out_c = composite(rf_c, z_vals)
     out_f = None
     if rcfg.num_fine > 0 and point_fn_fine is not None:
         z_fine = hierarchical_z_vals(z_vals, out_c.weights, rcfg.num_fine,
@@ -157,7 +188,8 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
     def unblock(outs):
         if outs[0] is None:
             return None
-        return RenderOutputs(*[torch.cat(f)[:n] for f in zip(*outs)])
+        return RenderOutputs(*[None if f[0] is None else torch.cat(f)[:n]
+                               for f in zip(*outs)])
 
     aux = {}
     for res in results:
@@ -170,14 +202,25 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
 def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                            member: int = 0, rot_mats=None,
                            tile_rays: Optional[int] = None,
+                           tile_train: bool = False,
+                           noise_generator: Optional[torch.Generator] = None,
+                           plane_resolution: Optional[int] = None,
                            sigma_only: bool = False) -> PointFn:
     """Triplane decoder point function.
 
-    tile_rays: route the pass through the fused gather+decode kernel
-    (ops/fused_render.py; the counterpart of building the JAX point fn
-    with a TileSamplerConfig of that tile size). The plane table and the
-    packed decoder are built HERE, once per point fn. Without tile_rays
-    the pass runs the reference path (apply_triplane_rays).
+    tile_rays: route the pass through a hand-written kernel (the
+    counterpart of building the JAX point fn with a TileSamplerConfig of
+    that tile size). For eval, the fused gather+decode kernel
+    (ops/fused_render.py): the plane table and the packed decoder are
+    built HERE, once per point fn. With tile_train, the trainable plane
+    sampler (ops/plane_sample.py) with the decoder in plain torch, so
+    the pass is differentiable; its table is rebuilt every call, inside
+    the autograd boundary, since the planes change every step. Without
+    tile_rays the pass runs the reference path (apply_triplane_rays).
+
+    noise_generator, plane_resolution: train-time point_coords_noise
+    (std = cfg.point_coords_noise * 2 / (1 + plane_resolution)), drawn
+    from the generator per call; the eval fused path takes neither.
 
     sigma_only: CDF-only decode for an eval COARSE pass: the rgb branch
     and the view-plane sample are skipped; sigma is unchanged, so the
@@ -185,8 +228,29 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
     from nvsr_tpu_torch.models.triplane import (apply_triplane_rays,
                                                 apply_triplane_rays_from_z,
                                                 make_rot_mats)
+    assert not (sigma_only and tile_train), \
+        "sigma_only is an eval fast path; training needs coarse rgb"
+    if tile_rays is not None and tile_train:
+        def point_fn(pts, rays, z_vals):
+            return apply_triplane_rays_from_z(
+                params, model_cfg, planes_pos, plane_view, box,
+                rays.origins, rays.directions, rays.viewdirs, z_vals,
+                member=member, rot_mats=rot_mats, trainable=True,
+                noise_generator=noise_generator,
+                plane_resolution=plane_resolution)
+
+        point_fn.consumes_rays = True
+        point_fn.has_aux = True
+        point_fn.tile_rays = tile_rays
+        return point_fn
+
     if tile_rays is not None:
         from nvsr_tpu_torch.ops import fused_render
+        # the fused eval path cannot backprop or add coordinate noise: a
+        # silently dropped noise generator would change semantics
+        assert noise_generator is None and plane_resolution is None, (
+            "tile_rays without tile_train is an eval-only fast path; it "
+            "does not support point_coords_noise")
         # raises ValueError for a config the kernel does not compute
         packed = fused_render.pack_decoder(params, model_cfg, member)
         table = fused_render.build_plane_table(planes_pos)
@@ -214,7 +278,8 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
         return apply_triplane_rays(
             params, model_cfg, planes_pos, plane_view, box, pts,
             rays.viewdirs, member=member, rot_mats=rot_mats,
-            sigma_only=sigma_only)
+            noise_generator=noise_generator,
+            plane_resolution=plane_resolution, sigma_only=sigma_only)
 
     return point_fn
 
@@ -281,9 +346,11 @@ def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,
         if out is None:
             return None
         if tile:
-            return RenderOutputs(*[untile_ray_maps(a, hp, wp, tile)[:h, :w]
-                                   for a in out])
-        return RenderOutputs(*[a.reshape(h, w, *a.shape[1:]) for a in out])
+            return RenderOutputs(*[
+                None if a is None else untile_ray_maps(a, hp, wp, tile)[:h, :w]
+                for a in out])
+        return RenderOutputs(*[None if a is None else
+                               a.reshape(h, w, *a.shape[1:]) for a in out])
 
     return RenderResult(reshape(result.coarse), reshape(result.fine),
                         result.aux)

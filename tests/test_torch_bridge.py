@@ -34,7 +34,8 @@ def test_decoder_round_trip():
                             skip_connect_every=3,
                             viewdir_proj_combination="concat_pos")
     tree = jt.init_decoder_params(jax.random.PRNGKey(1), cfg)
-    port = bridge.decoder_from_jax(jax.tree.map(np.asarray, tree))
+    port = bridge.decoder_from_jax(jax.tree.map(np.asarray, tree),
+                                   device="cpu")
     assert port["members"][0]["density"][4]["w"].shape == (16 + 8, 16)
     _leaves_equal(tree, port)
 
@@ -43,7 +44,7 @@ def test_plane_sr_round_trip_keeps_oihw():
     cfg = jp.PlaneSRConfig(in_channels=4, out_channels=4, hidden_size=8,
                            n_blocks=2, scale_factor=2)
     tree = jp.init_plane_sr_params(jax.random.PRNGKey(2), cfg)
-    port = bridge.plane_sr_from_jax(tree)
+    port = bridge.plane_sr_from_jax(tree, device="cpu")
     assert port["inner"]["conv_input"]["w"].shape == (8, 4, 3, 3)
     assert port["inner"]["upscale"][0]["w"].shape == (32, 8, 3, 3)
     _leaves_equal(tree, port)
@@ -123,3 +124,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                 None, torch.zeros((2, 3)), None, None,
                                 align_corners=True, avg=True,
                                 sigma_only=True)
+
+
+def test_bridge_defaults_to_the_card():
+    """The port's entry points run on the card unless the caller names
+    another device."""
+    import inspect
+    from nvsr_tpu_torch.models import plane_sr, triplane
+    for fn in (bridge.decoder_from_jax, bridge.plane_sr_from_jax,
+               bridge.planes_from_jax, triplane.init_decoder_params,
+               plane_sr.init_plane_sr_params, plane_sr.init_edsr_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    planes = {"pos": np.ones((3, 2, 4, 4)), "view": np.zeros((2, 3, 3))}
+    out = bridge.planes_from_jax(planes, device="cpu")
+    assert out["pos"].dtype == torch.float32 and out["view"].shape == (2, 3,
+                                                                       3)

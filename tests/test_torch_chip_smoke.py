@@ -27,3 +27,19 @@ def test_chip_smoke_fails_without_gpu_or_package(tmp_path, where):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and out.stdout.strip() == ""
+
+
+def test_train_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's training phase at a tiny size on the CPU, where
+    every step runs the plain versions: the path, its optimizers and its
+    checks (finite losses, every trained group moves, kernel and plain
+    sampler steps agree) work end to end."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    small = dict(rays=64, samples=4, channels=8, res=12, view_res=4,
+                 sr_hidden=4, sr_blocks=1, sr_scale=2, image=16)
+    assert cs.train_phase("cpu", cs.camera([3.8, 0.5, 0.7]), w=small,
+                          on_card=False) == {}

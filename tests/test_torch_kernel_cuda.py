@@ -87,7 +87,8 @@ def test_kernel_matches_plain(device, layers, chans):
 
 def test_sigma_only_bit_identical_and_counted(device):
     args = _inputs(device, R=257, S=16, seed=1)
-    before = [k.launches for k in kernels.KERNELS]
+    mine = (kernels.triplane_render_full, kernels.triplane_render_sigma_only)
+    before = [k.launches for k in mine]
     full = kernels.triplane_render(*args, align_corners=False, avg=False,
                                    sigma_only=False)
     so = kernels.triplane_render(*args, align_corners=False, avg=False,
@@ -95,4 +96,67 @@ def test_sigma_only_bit_identical_and_counted(device):
     torch.cuda.synchronize()
     assert torch.equal(so[..., 3], full[..., 3])
     assert torch.all(so[..., :3] == args[1].bh[:3])
-    assert [k.launches for k in kernels.KERNELS] == [b + 1 for b in before]
+    assert [k.launches for k in mine] == [b + 1 for b in before]
+
+
+# -- the trainable plane sampler (csrc/plane_sample.cu) -------------------
+# The forward repeats its plain version's rounding step for step: bit-equal.
+# The backward adds with atomics in an order that varies by run; its plain
+# version adds with index_add_: f32 summation order only, atol 1e-5 on
+# gradients of unit scale.
+
+
+def _sampler_inputs(device, P=3, C=48, H=37, W=29, N=5000, seed=0):
+    from nvsr_tpu_torch.ops.fused_render import build_plane_table
+    gen = torch.Generator().manual_seed(seed)
+    planes = torch.randn((P, C, H, W), generator=gen).to(device)
+    # a fifth of the points fall outside [-1, 1]: the border clamps
+    grids = (torch.rand((P, N, 2), generator=gen) * 2.5 - 1.25).to(device)
+    dout = torch.randn((P, N, C), generator=gen).to(device)
+    return planes, build_plane_table(planes), grids, dout
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_plane_sample_fwd_bit_equal(device, align_corners):
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    planes, table, grids, _ = _sampler_inputs(device)
+    before = kernels.plane_sample_fwd.launches
+    out = kernels.plane_sample_forward(table, grids, planes.shape[1],
+                                       align_corners=align_corners)
+    ref = ps.plane_sample_reference(table, grids, planes.shape[1],
+                                    align_corners)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert kernels.plane_sample_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_plane_sample_bwd_matches_plain(device, align_corners):
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    planes, _, grids, dout = _sampler_inputs(device, seed=1)
+    _, c, h, w = planes.shape
+    before = kernels.plane_sample_bwd.launches
+    out = kernels.plane_sample_backward(dout, grids, h, w,
+                                        align_corners=align_corners)
+    ref = ps.plane_sample_backward_reference(dout, grids, h, w,
+                                             align_corners)
+    torch.cuda.synchronize()
+    assert out.shape == planes.shape
+    assert (out - ref).abs().max() < 1e-5
+    assert kernels.plane_sample_bwd.launches == before + 1
+
+
+def test_plane_sample_autograd_goes_through_kernels(device):
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    planes, _, grids, dout = _sampler_inputs(device, C=16, N=777, seed=2)
+    planes.requires_grad_(True)
+    before = [kernels.plane_sample_fwd.launches,
+              kernels.plane_sample_bwd.launches]
+    out = ps.plane_sample(planes, grids)
+    (g,) = torch.autograd.grad(out, planes, dout)
+    torch.cuda.synchronize()
+    assert [kernels.plane_sample_fwd.launches,
+            kernels.plane_sample_bwd.launches] == [b + 1 for b in before]
+    ref = ps.plane_sample_backward_reference(dout, grids, *planes.shape[2:],
+                                             True)
+    assert (g - ref).abs().max() < 1e-5

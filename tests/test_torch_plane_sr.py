@@ -62,7 +62,7 @@ def test_apply_plane_sr(rng, scale, compute, norm):
     lr = rng.standard_normal((3, 6, 12, 10)).astype(np.float32)
     ref = np.asarray(jp.apply_plane_sr(
         jax.tree.map(jnp.asarray, params), jcfg, jnp.asarray(lr)))
-    out = tp.apply_plane_sr(bridge.plane_sr_from_jax(params),
+    out = tp.apply_plane_sr(bridge.plane_sr_from_jax(params, "cpu"),
                             _port_cfg(jcfg), t(lr)).numpy()
     assert out.shape == ref.shape == (3, 6, 12 * scale, 10 * scale)
     err = np.abs(out - ref)

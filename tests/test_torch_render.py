@@ -76,7 +76,7 @@ def _port_frame(a, tile, fused):
     rcfg = trender.RenderConfig(num_coarse=16, num_fine=16, perturb=False,
                                 white_background=True, ray_block=8192)
     mk = lambda dec, so=False: trender.make_triplane_point_fn(
-        bridge.decoder_from_jax(dec), cfg, t(a["planes_pos"]),
+        bridge.decoder_from_jax(dec, "cpu"), cfg, t(a["planes_pos"]),
         t(a["plane_view"]), a["box"], sigma_only=so,
         tile_rays=256 if fused else None)
     with torch.no_grad():

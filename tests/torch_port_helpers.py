@@ -47,7 +47,7 @@ def np_decoder(rng, cfg: JaxTriplaneConfig, scale: float = 1.0):
 
 
 def to_port(tree):
-    return bridge.decoder_from_jax(tree)
+    return bridge.decoder_from_jax(tree, device="cpu")
 
 
 def tile_rays_geometry(R=16, S=8, z0=0.8, z1=3.2):
