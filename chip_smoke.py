@@ -28,7 +28,20 @@ Phases (any failure raises and the script exits non-zero):
      sampler (losses must agree); then, with launch counts zeroed, 3
      HR/SR steps (EDSR 256x32 x4 bf16 trained, fine pass on the SR'd
      800^2 planes) and 3 LR steps, each followed by the Adam updates of
-     the decoders, the SR net and the planes.
+     the decoders, the SR net and the planes;
+  6. bicubic planes (plane_interp 'bicubic', set on the triplane config
+     and carried into the SR config's residual; otherwise the flagship of
+     phase 3): the cubic megakernel's two entries against their plain
+     versions at phase 2's pass shapes, and the cubic sampler kernel at
+     the fine pass's (timed beside F.grid_sample bicubic); then, with
+     launch counts zeroed, SR with the bicubic residual, the 800x800 frame
+     through the cubic megakernel, and the same frame with an f32 decoder
+     (the non-fused tiled route: the cubic sampler kernel and the plain
+     decoder); the frame timed through the kernels and the plain version
+     (kernel vs plain >= 45 dB); then the gate scene in bicubic (kernel vs
+     plain, the f32 route vs the f32 reference path, the reference path's
+     PSNR against JAX's, 39.130 dB on the CPU) and with its own f32
+     bilinear config through the non-fused route.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
@@ -52,6 +65,9 @@ MAX_ABS_TOL = 5e-2
 MEAN_ABS_TOL = 2e-3
 GATE_PSNR_MIN_DB = 45.0       # kernel vs plain frame (bench.py's gate)
 GATE_REF_PSNR_DB = 39.593     # JAX reference path vs gt, CPU
+# the same with plane_interp 'bicubic' (JAX's XLA path on the CPU; pinned
+# by tests/test_torch_tiled_route.py)
+GATE_BICUBIC_REF_PSNR_DB = 39.130
 RAY_BLOCK = 8192
 # the trainable sampler: the forward repeats its plain version's rounding
 # step for step (bit-equal); the backward adds with atomics in another
@@ -73,28 +89,57 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def bound(nbytes, ops, peak_ops):
-    """(bound_ms, bound_by): the least time the card could take."""
+def bound(nbytes, *work):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the memory rate and, for each type of
+    operation in `work` ((count, peak rate) pairs), the operations over
+    their peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
+    t_ops = max(ops / peak * 1e3 for ops, peak in work)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def render_bound(args, sigma_only):
-    """Bound of one triplane_render call: every input read once, the
-    output written once; the decoder's multiply-adds at the bf16 tensor
-    core rate."""
-    table, packed, origins, directions, z, view = args[:6]
+def table_bytes_read(table, grids, cubic, align_corners=True):
+    """Bytes of the plane-table cells that this run's points read, each
+    cell once: table [P, H, W, Cp] bf16, grids one [N, 2] per plane."""
+    import torch
+    from nvsr_tpu_torch.ops.grid_sample import _corners, cubic_taps
+    _, h, w, cp = table.shape
+    cells = 0
+    for g in grids:
+        if cubic:
+            cols, rows, _, _ = cubic_taps(g, h, w, align_corners)
+            c = rows[:, :, None] * w + cols[:, None, :]
+        else:
+            _, _, x0, x1, y0, y1 = _corners(g, h, w, align_corners)
+            c = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0,
+                             y1 * w + x1], dim=-1)
+        cells += torch.unique(c.reshape(-1)).numel()
+    return cells * cp * table.element_size()
+
+
+def render_bound(args, sigma_only, cubic=False):
+    """Bound of one triplane_render call: the table cells the points read
+    and every other input read once, the output written once; the
+    decoder's multiply-adds at the bf16 tensor core rate, the gather's f32
+    arithmetic (per point, plane and channel: bilinear 4 products and 6
+    sums, bicubic 16 products and 16 sums, the comb sum included) at the
+    f32 rate."""
+    from nvsr_tpu_torch.ops.fused_render import plane_grids
+    table, packed, origins, directions, z, view, geom = args[:7]
     r, s = z.shape
-    ins = [table, origins, directions, z, packed.w, packed.b, packed.wh,
+    ins = [origins, directions, z, packed.w, packed.b, packed.wh,
            packed.bh] + ([] if sigma_only else [view])
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + r * s * 16
+    nbytes = (table_bytes_read(table, plane_grids(origins, directions, z,
+                                                  geom), cubic)
+              + sum(t.numel() * t.element_size() for t in ins) + r * s * 16)
     flops = 0
     for branch, _, _, k, _ in packed.layers():
         if branch == "density" or not sigma_only:
             flops += 2 * k * 128
     flops += 2 * 128 * (1 if sigma_only else 4)
-    return bound(nbytes, flops * r * s, BF16_TC_FLOPS)
+    gather = r * s * 3 * packed.cp * (32 if cubic else 10)
+    return bound(nbytes, (flops * r * s, BF16_TC_FLOPS), (gather, F32_FLOPS))
 
 
 def cuda_ms(fn, warmup=2, reps=10):
@@ -189,7 +234,8 @@ def random_edsr(gen, cfg, device):
 
 def plain_point_fn(params, cfg, planes, plane_view, box, sigma_only):
     """The fused pass with the kernel's plain version in its place (what
-    make_triplane_point_fn(tile_rays=...) builds, on the plain path)."""
+    make_triplane_point_fn(tile_rays=...) builds for a bf16 config, on the
+    plain path); bilinear or bicubic, as cfg.plane_interp says."""
     from nvsr_tpu_torch.models.triplane import (make_rot_mats,
                                                 sample_viewdir_plane)
     from nvsr_tpu_torch.ops import fused_render
@@ -205,7 +251,8 @@ def plain_point_fn(params, cfg, planes, plane_view, box, sigma_only):
         return fused_render.fused_render_reference(
             table, packed, rays.origins, rays.directions, z_vals, view,
             geom, align_corners=cfg.align_corners,
-            avg=cfg.proj_combination == "avg", sigma_only=sigma_only)
+            avg=cfg.proj_combination == "avg", sigma_only=sigma_only,
+            cubic=cfg.plane_interp == "bicubic")
 
     point_fn.consumes_rays = True
     return point_fn
@@ -289,10 +336,10 @@ def sampler_checks(dev, planes_pos, grids, dout):
     f32 = 4
     # forward: 4 products, 2 sums, 2 roundings, 2 products, 1 sum per
     # output value; backward: 4 products, 2 roundings, 4 adds per dout
-    b_f = bound(p * n * c * f32 + table.numel() * 2 + grids.numel() * f32,
-                11 * p * n * c, F32_FLOPS)
+    b_f = bound(p * n * c * f32 + table_bytes_read(table, grids, False)
+                + grids.numel() * f32, (11 * p * n * c, F32_FLOPS))
     b_b = bound(dout.numel() * f32 + grids.numel() * f32
-                + p * c * h * w * f32, 10 * p * n * c, F32_FLOPS)
+                + p * c * h * w * f32, (10 * p * n * c, F32_FLOPS))
     shape = f"P={p}, N={n}, C={c}, {h}x{w} planes"
     print(f"[train] plane_sample_fwd ({shape}): max err "
           f"{e_f.max().item():.3e}, mean {e_f.mean().item():.3e} (tol "
@@ -538,6 +585,352 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
     return entries
 
 
+def tiled_fn(params, cfg, planes, plane_view, box, sigma_only):
+    """The port's tiled eval point fn, 16x16 ray tiles: the fused kernel
+    for a bf16 config, the eval sampler kernel and the plain decoder for
+    any other."""
+    from nvsr_tpu_torch.render import make_triplane_point_fn
+    return make_triplane_point_fn(params, cfg, planes, plane_view, box,
+                                  tile_rays=256, sigma_only=sigma_only)
+
+
+def reference_fn(params, cfg, planes, plane_view, box, sigma_only):
+    """The port's reference (non-kernel) point fn."""
+    from nvsr_tpu_torch.render import make_triplane_point_fn
+    return make_triplane_point_fn(params, cfg, planes, plane_view, box,
+                                  sigma_only=sigma_only)
+
+
+def gate_scene(dev):
+    """The committed trained gate scene on `dev` -> (asset, frame):
+    frame(make_fn, cfg, tile) renders its held-out view (16+16 samples,
+    occupancy bounds, white background) with the point fns that
+    make_fn(decoder, cfg, planes, plane_view, box, sigma_only) builds and
+    returns the fine rgb."""
+    import torch
+    from nvsr_tpu_torch import bridge
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    from nvsr_tpu_torch.render import RenderConfig, render_image
+    a = bridge.load_gate_asset(os.path.join(ROOT, "assets",
+                                            "gate_scene.pkl"))
+    ro, rd = get_ray_bundle(
+        a["h"], a["w"], a["focal"], torch.as_tensor(a["pose"], device=dev),
+        downsampling_offset=(a["ds_factor"] - 1) / (2 * a["ds_factor"]))
+    planes = torch.as_tensor(a["planes_pos"], device=dev)
+    view = torch.as_tensor(a["plane_view"], device=dev)
+    dc = bridge.decoder_from_jax(a["decoder_coarse"], dev)
+    df = bridge.decoder_from_jax(a["decoder_fine"], dev)
+    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
+                        white_background=True, ray_block=RAY_BLOCK)
+
+    def frame(make_fn, cfg, tile):
+        return render_image(
+            make_fn(dc, cfg, planes, view, a["box"], True),
+            make_fn(df, cfg, planes, view, a["box"], False), ro, rd, rcfg,
+            near=a["near"], far=a["far"], occ_aabb=a["occ_aabb"],
+            tile=tile).fine.rgb
+
+    return a, frame
+
+
+def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
+                  occ, ro, rd):
+    """The triplane kernel's two entries for cfg.plane_interp against their
+    plain versions at the flagship pass shapes, one RAY_BLOCK block each
+    (coarse S=16 sigma-only on the LR planes, fine S=32 full decode on the
+    SR planes), timed with CUDA events; the sigma-only entry's sigma
+    bit-equal to the full one's -> (kernel entries, the fine call's
+    arguments)."""
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.triplane import (make_rot_mats,
+                                                sample_viewdir_plane)
+    from nvsr_tpu_torch.ops import fused_render
+    from nvsr_tpu_torch.ops.rendering import volume_render
+    from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
+                                             stratified_z_vals)
+    from nvsr_tpu_torch.render import (make_ray_bundle, tighten_bundle,
+                                       tile_ray_maps)
+    cubic = cfg.plane_interp == "bicubic"
+    kind = "triplane_render_cubic_" if cubic else "triplane_render_"
+    rays = make_ray_bundle(tile_ray_maps(ro, 16), tile_ray_maps(rd, 16),
+                           2.0, 6.0, use_viewdirs=True)
+    rays = tighten_bundle(rays, occ, tile_rays=256)
+    blk = type(rays)(*[f[:RAY_BLOCK] for f in rays])
+    geom = fused_render.geometry_args(box, make_rot_mats(3))
+    z_c = stratified_z_vals(blk.near, blk.far, 16, lindisp=False,
+                            perturb=False)
+    tab_c = fused_render.build_plane_table(planes_lr)
+    tab_f = fused_render.build_plane_table(planes_sr)
+    pk_c = fused_render.pack_decoder(dec_c, cfg)
+    pk_f = fused_render.pack_decoder(dec_f, cfg)
+    coarse_args = (tab_c, pk_c, blk.origins.contiguous(),
+                   blk.directions.contiguous(), z_c.contiguous(), None, geom)
+    rf_c = kernels.triplane_render(*coarse_args, align_corners=True,
+                                   avg=True, sigma_only=True, cubic=cubic)
+    z_f = hierarchical_z_vals(
+        z_c, volume_render(rf_c, z_c, blk.directions).weights, 16, det=True)
+    view = fused_render.view_rows(sample_viewdir_plane(
+        plane_view, blk.viewdirs, box, cfg, dense=True), pk_f.cvp)
+    fine_args = (tab_f, pk_f, blk.origins.contiguous(),
+                 blk.directions.contiguous(), z_f.contiguous(), view, geom)
+    entries = {}
+    for name, args, so, shape in (
+            (kind + "sigma_only", coarse_args, True, "coarse S=16 on "
+             f"{tab_c.shape[1]}^2"),
+            (kind + "full", fine_args, False,
+             f"fine S=32 on {tab_f.shape[1]}^2")):
+        kw = dict(align_corners=True, avg=True, sigma_only=so, cubic=cubic)
+        out = kernels.triplane_render(*args, **kw)
+        ref = fused_render.fused_render_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite kernel output")
+        err = (out - ref).abs()
+        e_rgb, e_sig = err[..., :3], err[..., 3]
+        ms = cuda_ms(lambda: kernels.triplane_render(*args, **kw))
+        plain_ms = cuda_ms(
+            lambda: fused_render.fused_render_reference(*args, **kw),
+            warmup=1, reps=3)
+        print(f"[check] {name} ({shape}, {args[4].shape[0]} rays): "
+              f"rgb max {e_rgb.max().item():.3e} mean "
+              f"{e_rgb.mean().item():.3e}; sigma max "
+              f"{e_sig.max().item():.3e} mean {e_sig.mean().item():.3e}"
+              f" (tol max {MAX_ABS_TOL}, mean {MEAN_ABS_TOL}); kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if not (err.max() <= MAX_ABS_TOL and err.mean() <= MEAN_ABS_TOL):
+            fail(f"{name} disagrees with its plain version")
+        b_ms, b_by = render_bound(args, so, cubic)
+        print(f"[check] {name}: bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.1%} of it); no single PyTorch call "
+              f"computes gather + decoder")
+        entries[name] = {"name": name, "route": "cuda",
+                         "source": "nvsr_tpu_torch/csrc/triplane_render.cu",
+                         "replaces": "nvsr_tpu/ops/pallas/"
+                                     "tile_sampler.py:904",
+                         "max_abs_err": err.max().item(), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
+    # sigma_only sigma == full-decode sigma, bit for bit
+    kw = dict(align_corners=True, avg=True, cubic=cubic)
+    so_out = kernels.triplane_render(*fine_args, sigma_only=True, **kw)
+    full_out = kernels.triplane_render(*fine_args, sigma_only=False, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(so_out[..., 3], full_out[..., 3]):
+        fail(f"{kind}sigma_only sigma differs from the full decode's")
+    print(f"[check] {kind}sigma_only sigma bit-identical to the full "
+          f"decode: yes")
+    return entries, fine_args
+
+
+def cubic_sampler_check(planes_sr, fine_args):
+    """plane_sample_cubic_fwd against its plain version at the fine pass's
+    shapes (the fine block's points on the SR planes), timed beside
+    F.grid_sample bicubic -> its kernel entry."""
+    import torch
+    import torch.nn.functional as F
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    from nvsr_tpu_torch.ops.fused_render import plane_grids
+    table, _, origins, directions, z, _, geom = fine_args
+    grids = torch.stack(plane_grids(origins, directions, z, geom)
+                        ).contiguous()
+    p, c, h, w = planes_sr.shape
+    n = grids.shape[1]
+    out = kernels.plane_sample_forward(table, grids, c, align_corners=True,
+                                       cubic=True)
+    ref = ps.plane_sample_reference(table, grids, c, True, cubic=True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("plane_sample_cubic_fwd: non-finite kernel output")
+    err = (out - ref).abs()
+    g4 = grids[:, None]
+    ms = cuda_ms(lambda: kernels.plane_sample_forward(
+        table, grids, c, align_corners=True, cubic=True), warmup=3, reps=20)
+    plain_ms = cuda_ms(lambda: ps.plane_sample_reference(
+        table, grids, c, True, cubic=True), warmup=1, reps=3)
+    lib_ms = cuda_ms(lambda: F.grid_sample(
+        planes_sr, g4, mode="bicubic", padding_mode="border",
+        align_corners=True), warmup=3, reps=20)
+    # per output value: 16 products, 12 sums, 4 roundings (the rows), 4
+    # products and 3 sums (the y-combine)
+    b_ms, b_by = bound(p * n * c * 4 + table_bytes_read(table, grids, True)
+                       + grids.numel() * 4, (39 * p * n * c, F32_FLOPS))
+    print(f"[bicubic] plane_sample_cubic_fwd (P={p}, N={n}, C={c}, {h}x{w} "
+          f"planes): max err {err.max().item():.3e} (tol {SAMPLE_FWD_TOL}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.grid_sample "
+          f"bicubic {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+          f"({b_ms / ms:.1%})")
+    if err.max() > SAMPLE_FWD_TOL:
+        fail("plane_sample_cubic_fwd disagrees with its plain version")
+    return {"plane_sample_cubic_fwd": {
+        "name": "plane_sample_cubic_fwd", "route": "cuda",
+        "source": "nvsr_tpu_torch/csrc/plane_sample.cu",
+        "replaces": "nvsr_tpu/ops/pallas/tile_sampler.py:311",
+        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}}
+
+
+# the flagship eval frame (bench.py:96-157) at TrainModels widths: 800x800,
+# 3x48x200^2 LR planes, 48x32^2 view plane, EDSR 256 wide x 32 blocks x4
+EVAL_FULL = dict(image=800, channels=48, res=200, view_res=32,
+                 sr_hidden=256, sr_blocks=32, sr_scale=4, reps=10)
+
+
+def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True):
+    """Phase 6 (see the module docstring). With on_card=False (a CPU
+    rehearsal at a small `w`) the kernel checks, launch counts and timings
+    are skipped and every pass runs the plain versions."""
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    from nvsr_tpu_torch.render import RenderConfig, render_image
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c, res, vr = w["channels"], w["res"], w["view_res"]
+    gen = torch.Generator().manual_seed(2)
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, num_plane_channels=c,
+                         plane_interp="bicubic", compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, compute_dtype=None)
+    sr_cfg = PlaneSRConfig(in_channels=c, out_channels=c,
+                           hidden_size=w["sr_hidden"],
+                           n_blocks=w["sr_blocks"],
+                           scale_factor=w["sr_scale"],
+                           plane_interp=cfg.plane_interp,
+                           compute_dtype="bfloat16")
+    dec_c = random_decoder(gen, cfg, dev)
+    dec_f = random_decoder(gen, cfg, dev)
+    for dec in (dec_c, dec_f):
+        dec["members"][0]["fc_alpha"]["b"].fill_(1.0)
+    sr_params = random_edsr(gen, sr_cfg, dev)
+    planes_lr = (0.03 * torch.randn((3, c, res, res), generator=gen)).to(dev)
+    plane_view = (0.03 * torch.randn((c, vr, vr), generator=gen)).to(dev)
+    box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
+                    [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    img = w["image"]
+    ro, rd = get_ray_bundle(img, img, 0.5 * img / np.tan(0.3),
+                            torch.as_tensor(c2w, device=dev))
+    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
+                        ray_block=RAY_BLOCK)
+
+    def point_fns(make_fn, mcfg, planes_sr):
+        return (make_fn(dec_c, mcfg, planes_lr, plane_view, box, True),
+                make_fn(dec_f, mcfg, planes_sr, plane_view, box, False))
+
+    def frame(fns):
+        return render_image(*fns, ro, rd, rcfg, near=2.0, far=6.0,
+                            occ_aabb=occ, tile=16).fine.rgb
+
+    entries = {}
+    with torch.no_grad():
+        if on_card:
+            planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
+            entries, fine_args = render_checks(
+                cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
+                occ, ro, rd)
+            entries.update(cubic_sampler_check(planes_sr, fine_args))
+
+        # the bicubic path once: SR with the bicubic residual, the bf16
+        # frame through the cubic megakernel, and the same frame with an
+        # f32 decoder through the cubic sampler kernel and the plain decoder
+        mine = (kernels.triplane_render_cubic_full,
+                kernels.triplane_render_cubic_sigma_only,
+                kernels.plane_sample_cubic_fwd)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
+        fns, fns32 = (point_fns(tiled_fn, cfg, planes_sr),
+                      point_fns(tiled_fn, cfg32, planes_sr))
+        rgb, rgb32 = frame(fns), frame(fns32)
+        sync()
+        main_s = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in mine}
+        print(f"[bicubic] SR + {img}x{img} bf16 frame + f32 frame in "
+              f"{main_s:.3f} s (first run); launches {launches}")
+        for name, x in (("bf16", rgb), ("f32", rgb32)):
+            if tuple(x.shape) != (img, img, 3) or not torch.isfinite(x).all():
+                fail(f"bicubic {name} frame: shape {tuple(x.shape)} or "
+                     f"non-finite")
+        print(f"[bicubic] rgb mean {rgb.mean().item():.4f} (bf16 fused), "
+              f"{rgb32.mean().item():.4f} (f32 sampler + plain decoder); "
+              f"the two frames agree to {psnr(rgb, rgb32):.2f} dB")
+        if on_card:
+            if min(launches.values()) == 0:
+                fail(f"a kernel of the bicubic path was never launched: "
+                     f"{launches}")
+            for name in entries:
+                entries[name]["launches"] = launches[name]
+            sr_ms = cuda_ms(lambda: apply_plane_sr(sr_params, sr_cfg,
+                                                   planes_lr),
+                            warmup=1, reps=3)
+            print(f"[bicubic] plane SR with the bicubic residual: "
+                  f"{sr_ms:.2f} ms")
+            kern_ms = frame_ms(lambda: frame(fns), reps=w["reps"])
+            plain_fns = point_fns(plain_point_fn, cfg, planes_sr)
+            plain_rgb = frame(plain_fns)
+            plain_ms = frame_ms(lambda: frame(plain_fns), reps=3)
+            f32_ms = frame_ms(lambda: frame(fns32), reps=3)
+            for name, ts in (("the cubic megakernel", kern_ms),
+                             ("its plain version", plain_ms),
+                             ("the cubic sampler kernel + f32 decoder",
+                              f32_ms)):
+                med = ts[len(ts) // 2]
+                print(f"[bicubic] frame through {name}: median of "
+                      f"{len(ts)} {med:.2f} ms (min {ts[0]:.2f}, max "
+                      f"{ts[-1]:.2f}) = {img * img / med * 1e3:.0f} rays/s")
+            p_kp = psnr(rgb, plain_rgb)
+            print(f"[bicubic] kernel vs plain frame PSNR {p_kp:.2f} dB (min "
+                  f"{GATE_PSNR_MIN_DB})")
+            if p_kp < GATE_PSNR_MIN_DB:
+                fail("bicubic frame: kernel and plain version disagree")
+
+        # the gate scene with plane_interp 'bicubic', and its own f32
+        # (bilinear) config through the non-fused tiled route
+        a, gate_frame = gate_scene(dev)
+        gt = torch.as_tensor(a["gt"].astype(np.float32) / 255.0, device=dev)
+        g32 = dataclasses.replace(a["model_cfg"], plane_interp="bicubic")
+        g16 = dataclasses.replace(g32, compute_dtype="bfloat16")
+        kern = gate_frame(tiled_fn, g16, 16)
+        plain = gate_frame(plain_point_fn, g16, 16)
+        routed = {}
+        for name, gcfg, kern_ in (
+                ("bicubic", g32, kernels.plane_sample_cubic_fwd),
+                ("bilinear", a["model_cfg"], kernels.plane_sample_fwd)):
+            before = kern_.launches
+            routed[name] = (gate_frame(tiled_fn, gcfg, 16),
+                            gate_frame(reference_fn, gcfg, 16))
+            sync()
+            if on_card and kern_.launches == before:
+                fail(f"the {name} f32 gate frame did not launch "
+                     f"{kern_.symbol}")
+        ref32 = gate_frame(reference_fn, g32, None)
+        p_kp, p_r = psnr(kern, plain), psnr(ref32, gt)
+        p_cub, p_lin = (psnr(*routed["bicubic"]), psnr(*routed["bilinear"]))
+        print(f"[gate bicubic] held-out PSNR vs gt: kernel "
+              f"{psnr(kern, gt):.3f} dB, plain {psnr(plain, gt):.3f} dB, "
+              f"f32 sampler route {psnr(routed['bicubic'][0], gt):.3f} dB, "
+              f"f32 reference path {p_r:.3f} dB (JAX reference on the CPU: "
+              f"{GATE_BICUBIC_REF_PSNR_DB} dB); kernel vs plain "
+              f"{p_kp:.2f} dB; f32 sampler route vs reference path, 16x16 "
+              f"tiles: bicubic {p_cub:.2f} dB, bilinear (the scene's own "
+              f"config) {p_lin:.2f} dB (min {GATE_PSNR_MIN_DB})")
+        if not (min(p_kp, p_cub, p_lin) >= GATE_PSNR_MIN_DB
+                and abs(p_r - GATE_BICUBIC_REF_PSNR_DB) < 0.05):
+            fail("bicubic gate scene check failed")
+    return entries
+
+
 def main(profile=False):
     import numpy as np
     import torch
@@ -545,17 +938,11 @@ def main(profile=False):
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "GPU")
     sys.path.insert(0, ROOT)
-    from nvsr_tpu_torch import bridge, kernels
+    from nvsr_tpu_torch import kernels
     from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
-    from nvsr_tpu_torch.models.triplane import TriplaneConfig, make_rot_mats
-    from nvsr_tpu_torch.ops import fused_render
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig
     from nvsr_tpu_torch.ops.geometry import get_ray_bundle
-    from nvsr_tpu_torch.ops.rendering import volume_render
-    from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
-                                             stratified_z_vals)
-    from nvsr_tpu_torch.render import (RenderConfig, make_ray_bundle,
-                                       make_triplane_point_fn, render_image,
-                                       tighten_bundle, tile_ray_maps)
+    from nvsr_tpu_torch.render import RenderConfig, render_image
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -612,79 +999,8 @@ def main(profile=False):
         torch.cuda.synchronize()
 
         # -- 2. kernels vs plain at the pass shapes ----------------------
-        rays = make_ray_bundle(tile_ray_maps(ro, 16), tile_ray_maps(rd, 16),
-                               2.0, 6.0, use_viewdirs=True)
-        rays = tighten_bundle(rays, occ, tile_rays=256)
-        blk = type(rays)(*[f[:RAY_BLOCK] for f in rays])
-        geom = fused_render.geometry_args(box, make_rot_mats(3))
-        from nvsr_tpu_torch.models.triplane import sample_viewdir_plane
-        z_c = stratified_z_vals(blk.near, blk.far, 16, lindisp=False,
-                                perturb=False)
-        tab_c = fused_render.build_plane_table(planes_lr)
-        tab_f = fused_render.build_plane_table(planes_sr)
-        pk_c = fused_render.pack_decoder(dec_c, cfg)
-        pk_f = fused_render.pack_decoder(dec_f, cfg)
-        coarse_args = (tab_c, pk_c, blk.origins.contiguous(),
-                       blk.directions.contiguous(), z_c.contiguous(), None,
-                       geom)
-        rf_c = kernels.triplane_render(*coarse_args, align_corners=True,
-                                       avg=True, sigma_only=True)
-        z_f = hierarchical_z_vals(
-            z_c, volume_render(rf_c, z_c, blk.directions).weights, 16,
-            det=True)
-        view = fused_render.view_rows(sample_viewdir_plane(
-            plane_view, blk.viewdirs, box, cfg, dense=True), pk_f.cvp)
-        fine_args = (tab_f, pk_f, blk.origins.contiguous(),
-                     blk.directions.contiguous(), z_f.contiguous(), view,
-                     geom)
-        entries = {}
-        for name, args, so, shape in (
-                ("triplane_render_sigma_only", coarse_args, True,
-                 "coarse S=16 on 200^2"),
-                ("triplane_render_full", fine_args, False,
-                 "fine S=32 on 800^2")):
-            kw = dict(align_corners=True, avg=True, sigma_only=so)
-            out = kernels.triplane_render(*args, **kw)
-            ref = fused_render.fused_render_reference(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                fail(f"{name}: non-finite kernel output")
-            err = (out - ref).abs()
-            e_rgb, e_sig = err[..., :3], err[..., 3]
-            ms = cuda_ms(lambda: kernels.triplane_render(*args, **kw))
-            plain_ms = cuda_ms(
-                lambda: fused_render.fused_render_reference(*args, **kw),
-                warmup=1, reps=3)
-            print(f"[check] {name} ({shape}, {args[4].shape[0]} rays): "
-                  f"rgb max {e_rgb.max().item():.3e} mean "
-                  f"{e_rgb.mean().item():.3e}; sigma max "
-                  f"{e_sig.max().item():.3e} mean {e_sig.mean().item():.3e}"
-                  f" (tol max {MAX_ABS_TOL}, mean {MEAN_ABS_TOL}); kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if not (err.max() <= MAX_ABS_TOL and err.mean() <= MEAN_ABS_TOL):
-                fail(f"{name} disagrees with its plain version")
-            b_ms, b_by = render_bound(args, so)
-            print(f"[check] {name}: bound {b_ms:.4f} ms by {b_by} "
-                  f"({b_ms / ms:.1%} of it); no single PyTorch call "
-                  f"computes gather + decoder")
-            entries[name] = {"name": name, "route": "cuda",
-                             "source": "nvsr_tpu_torch/csrc/"
-                                       "triplane_render.cu",
-                             "replaces": "nvsr_tpu/ops/pallas/"
-                                         "tile_sampler.py:904",
-                             "max_abs_err": err.max().item(), "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": None}
-        # sigma_only sigma == full-decode sigma, bit for bit
-        so_out = kernels.triplane_render(*fine_args, align_corners=True,
-                                         avg=True, sigma_only=True)
-        full_out = kernels.triplane_render(*fine_args, align_corners=True,
-                                           avg=True, sigma_only=False)
-        torch.cuda.synchronize()
-        if not torch.equal(so_out[..., 3], full_out[..., 3]):
-            fail("sigma_only sigma differs from the full decode's")
-        print("[check] sigma_only sigma bit-identical to the full decode: "
-              "yes")
+        entries, _ = render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr,
+                                   plane_view, box, occ, ro, rd)
 
         # -- 3. the main path once ---------------------------------------
         frame_kernels = (kernels.triplane_render_full,
@@ -694,10 +1010,8 @@ def main(profile=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
-        pf_c = make_triplane_point_fn(dec_c, cfg, planes_lr, plane_view, box,
-                                      tile_rays=256, sigma_only=True)
-        pf_f = make_triplane_point_fn(dec_f, cfg, planes_sr, plane_view,
-                                      box, tile_rays=256)
+        pf_c = tiled_fn(dec_c, cfg, planes_lr, plane_view, box, True)
+        pf_f = tiled_fn(dec_f, cfg, planes_sr, plane_view, box, False)
         res = render_image(pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0,
                            occ_aabb=occ, tile=16)
         torch.cuda.synchronize()
@@ -739,35 +1053,12 @@ def main(profile=False):
               f"{psnr(rgb, plain_rgb):.2f} dB")
 
         # -- 4. the gate scene -------------------------------------------
-        a = bridge.load_gate_asset(os.path.join(ROOT, "assets",
-                                                "gate_scene.pkl"))
-        g_ro, g_rd = get_ray_bundle(
-            a["h"], a["w"], a["focal"], torch.as_tensor(a["pose"],
-                                                        device=dev),
-            downsampling_offset=(a["ds_factor"] - 1) / (2 * a["ds_factor"]))
-        g_planes = torch.as_tensor(a["planes_pos"], device=dev)
-        g_view = torch.as_tensor(a["plane_view"], device=dev)
-        g_dc = bridge.decoder_from_jax(a["decoder_coarse"], dev)
-        g_df = bridge.decoder_from_jax(a["decoder_fine"], dev)
-        g_rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
-                              white_background=True, ray_block=RAY_BLOCK)
+        a, gate_frame = gate_scene(dev)
         gt = torch.as_tensor(a["gt"].astype(np.float32) / 255.0, device=dev)
         g_cfg = dataclasses.replace(a["model_cfg"], compute_dtype="bfloat16")
-
-        def gate_frame(mk, gcfg, tile):
-            return render_image(
-                mk(g_dc, gcfg, True), mk(g_df, gcfg, False), g_ro, g_rd,
-                g_rcfg, near=a["near"], far=a["far"],
-                occ_aabb=a["occ_aabb"], tile=tile).fine.rgb
-
-        kern = gate_frame(lambda d, c, so: make_triplane_point_fn(
-            d, c, g_planes, g_view, a["box"], tile_rays=256, sigma_only=so),
-            g_cfg, 16)
-        plain = gate_frame(lambda d, c, so: plain_point_fn(
-            d, c, g_planes, g_view, a["box"], so), g_cfg, 16)
-        ref = gate_frame(lambda d, c, so: make_triplane_point_fn(
-            d, c, g_planes, g_view, a["box"], sigma_only=so),
-            a["model_cfg"], None)
+        kern = gate_frame(tiled_fn, g_cfg, 16)
+        plain = gate_frame(plain_point_fn, g_cfg, 16)
+        ref = gate_frame(reference_fn, a["model_cfg"], None)
         p_k, p_p, p_r = psnr(kern, gt), psnr(plain, gt), psnr(ref, gt)
         p_kp = psnr(kern, plain)
         print(f"[gate] held-out PSNR vs gt: kernel {p_k:.3f} dB, plain "
@@ -782,11 +1073,15 @@ def main(profile=False):
     entries.update(train_phase(dev, camera([3.8, 0.5, 0.7]),
                                profile=profile))
 
+    # -- 6. bicubic planes ------------------------------------------------
+    entries.update(bicubic_phase(dev, camera([3.8, 0.5, 0.7])))
+
     print(card)
-    print(json.dumps({"kernels": [entries["triplane_render_sigma_only"],
-                                  entries["triplane_render_full"],
-                                  entries["plane_sample_fwd"],
-                                  entries["plane_sample_bwd"]]}))
+    print(json.dumps({"kernels": [entries[name] for name in (
+        "triplane_render_sigma_only", "triplane_render_full",
+        "plane_sample_fwd", "plane_sample_bwd",
+        "triplane_render_cubic_sigma_only", "triplane_render_cubic_full",
+        "plane_sample_cubic_fwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

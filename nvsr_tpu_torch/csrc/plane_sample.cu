@@ -1,5 +1,6 @@
-// Trainable triplane plane sampler for Hopper (sm_90a): the forward
-// gather and its scatter-add backward.
+// Triplane plane sampler for Hopper (sm_90a): the trainable bilinear
+// forward gather and its scatter-add backward, and the bicubic eval
+// forward.
 //
 // Replaces the TPU kernel nvsr_tpu/ops/pallas/tile_sampler.py:311 (_kernel,
 // launched by _tile_gather :350 -> pl.pallas_call :367) as the forward of
@@ -23,14 +24,28 @@
 //   w0*dtop, w1*dtop, w0*dbot, w1*dbot added at (y0,x0), (y0,x1), (y1,x0),
 //   (y1,x1). Border folds of _fold_table_grad are the clamps of x1 and y1.
 //   The grids get no gradient.
+// plane_sample_cubic_fwd: the same table and grids -> out [P, N, C] f32,
+//   the bicubic form of the TPU kernel (_tile_gather with kernel="cubic",
+//   :301-306) with the y-combine of tiled_plane_sample_prechunked_bicubic
+//   (:535-540). Per plane and point:
+//   xs = clip(unnorm(gx), -1, W), ys likewise; x0 = floor(xs), tx = xs - x0;
+//   y0, ty likewise; taps at cols clamp(x0-1 .. x0+2), rows clamp(y0-1 ..
+//   y0+2) (torch's border: the 4x4 window clamps, not the coordinate);
+//   x-weights wx_i = bf16(cubic(i - tx)), i = -1..2 (sampling.cuh);
+//   row_j = bf16(sum_i wx_i * T[y0+j, x0+i]) (the TPU kernel's bf16 rows);
+//   out = c_-1*row_-1 + c_0*row_0 + c_1*row_1 + c_2*row_2 in f32, left to
+//   right, with c_j = cubic(j - ty) in f32.
 // Every f32 step uses _rn intrinsics, so no FMA contraction changes it: the
-// forward equals the plain version bit for bit; the backward's atomic
+// forwards equal their plain versions bit for bit; the backward's atomic
 // order changes from run to run, so it agrees to f32 summation order.
 //
 // What bounds them on the H100: bytes. At the training path's shapes
 // (P = 3, N = 65,536, C = 48, 200^2 planes) the forward writes 37.7 MB and
 // reads an 11.5 MB table and 1.6 MB of grids; the backward reads 37.7 MB
-// of dout and the grids and writes 23 MB of dplanes. Arithmetic is a few
+// of dout and the grids and writes 23 MB of dplanes. The bicubic forward
+// at the eval fine pass's shapes (P = 3, N = 262,144, C = 48, 800^2
+// planes) writes 151 MB and reads 6.3 MB of grids and at most the 184 MB
+// table; its 16 tap loads per point mostly hit L1/L2. Arithmetic is a few
 // operations per byte.
 //
 // Why a direct gather replaces the TPU design: Mosaic cannot gather in
@@ -43,6 +58,8 @@
 // footprint is ever clamped (overflow_frac is 0.0).
 //   forward:  one thread per (plane, point, 8 channels): four 16-byte tap
 //             loads, two 16-byte stores;
+//   cubic forward: one thread per (plane, point, 8 channels): sixteen
+//             16-byte tap loads, row by row, two 16-byte stores;
 //   backward: one thread per (plane, point, channel), four f32 atomicAdds
 //             into a channel-last [P, H, W, C] scratch (a warp's adds fall
 //             on neighbouring addresses), then a shared-memory transpose
@@ -51,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sampling.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -65,17 +84,6 @@ struct Tap {
   long long i00, i01, i10, i11;   // cells of the [P * H * W] grid
   float w0, w1, ty;
 };
-
-__device__ inline float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ inline float unnormalize(float g, int size, bool align_corners) {
-  if (align_corners)
-    return __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f), (float)(size - 1));
-  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f),
-                   0.5f);
-}
 
 // pn = p * N + n indexes grids [P, N, 2]
 __device__ inline Tap make_tap(const float* grids, long long pn, int p, int H,
@@ -127,6 +135,57 @@ plane_sample_fwd_kernel(const bf16* __restrict__ table, int cp,
     const float bot = bf16r(__fadd_rn(__fmul_rn(t.w0, __bfloat162float(v10[e])),
                                       __fmul_rn(t.w1, __bfloat162float(v11[e]))));
     o[e] = __fadd_rn(__fmul_rn(top, wt), __fmul_rn(bot, t.ty));
+  }
+  float4* dst = reinterpret_cast<float4*>(out + pn * C + c8);
+  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+plane_sample_cubic_fwd_kernel(const bf16* __restrict__ table, int cp,
+                              const float* __restrict__ grids, int N, int P,
+                              int H, int W, int C, int ac,
+                              float* __restrict__ out) {
+  const int groups = C / 8;
+  const long long item = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (item >= (long long)P * N * groups) return;
+  const long long pn = item / groups;
+  const int c8 = (int)(item % groups) * 8;
+  const long long p = pn / N;
+  const float2 g = *reinterpret_cast<const float2*>(grids + pn * 2);
+  int x0, y0;
+  float tx, ty;
+  cubic_coord(unnormalize(g.x, W, ac != 0), W, &x0, &tx);
+  cubic_coord(unnormalize(g.y, H, ac != 0), H, &y0, &ty);
+  float wx[4];
+  int col[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    wx[i] = bf16r(cubic_weight(__fsub_rn((float)(i - 1), tx)));
+    col[i] = min(max(x0 - 1 + i, 0), W - 1);
+  }
+  float o[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int yj = min(max(y0 - 1 + j, 0), H - 1);
+    const bf16* row = table + ((p * H + yj) * W) * cp + c8;
+    uint4 q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = __ldg(
+          reinterpret_cast<const uint4*>(row + (long long)col[i] * cp));
+    const bf16* v = reinterpret_cast<const bf16*>(q);   // v[i * 8 + e]
+    const float cy = cubic_weight(__fsub_rn((float)(j - 1), ty));
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float acc = __fmul_rn(wx[0], __bfloat162float(v[e]));
+#pragma unroll
+      for (int i = 1; i < 4; ++i)
+        acc = __fadd_rn(acc,
+                        __fmul_rn(wx[i], __bfloat162float(v[i * 8 + e])));
+      const float term = __fmul_rn(cy, bf16r(acc));
+      o[e] = j == 0 ? term : __fadd_rn(o[e], term);
+    }
   }
   float4* dst = reinterpret_cast<float4*>(out + pn * C + c8);
   dst[0] = make_float4(o[0], o[1], o[2], o[3]);
@@ -187,6 +246,19 @@ extern "C" int plane_sample_fwd(const void* table, int P, int H, int W,
   if (items == 0) return 0;
   plane_sample_fwd_kernel<<<blocks_for(items), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(table), cp, grids, N, P, H, W, C,
+      align_corners, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plane_sample_cubic_fwd(const void* table, int P, int H, int W,
+                                      int cp, int C, const float* grids, int N,
+                                      int align_corners, float* out,
+                                      void* stream) {
+  const long long items = (long long)P * N * (C / 8);
+  if (items == 0) return 0;
+  plane_sample_cubic_fwd_kernel<<<blocks_for(items), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(table), cp, grids, N, P, H, W, C,
       align_corners, out);
   return (int)cudaGetLastError();

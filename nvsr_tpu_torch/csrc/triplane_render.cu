@@ -15,16 +15,30 @@
 // bf16 relu activations; rgb and sigma go to out[n, 0:3] and out[n, 3]
 // (ray-major [R, S, 4]). The sigma_only variant skips the rgb branch and
 // writes the fc_rgb bias into the rgb lanes; its sigma is the same code
-// as the full decode's. All f32 steps before the decoder use _rn
-// intrinsics so that no FMA contraction changes them: the features equal
-// the plain version's bit for bit.
+// as the full decode's.
+//
+// The cubic variants (kCubic; the interp="cubic" branch of the TPU kernel,
+// tile_sampler.py:1131-1143, with the geometry of prepare_ray_chunks
+// :734-761) take a bicubic sample of each plane instead: the source
+// coordinate is clipped to [-1, W] and [-1, H], x0 = floor, tx, y0, ty;
+// the 4x4 window at cols clamp(x0-1 .. x0+2) and rows clamp(y0-1 .. y0+2)
+// (torch's border); weights w_ij = bf16(cubic(i - tx) * cubic(j - ty))
+// from the f32 cubic kernel (sampling.cuh); per row the f32 sum of its
+// four weight*tap products, and the feature is the f32 sum of the rows in
+// the order y0, y0+1, y0-1, y0+2 (the TPU kernel's A rows, then its B
+// rows). Comb and decoder as above.
+//
+// All f32 steps before the decoder use _rn intrinsics so that no FMA
+// contraction changes them: the features equal the plain version's bit
+// for bit.
 //
 // What bounds it on the H100: per point the gather reads 3 planes x 4 taps
 // x Cp bf16 (1152 B at Cp = 48, mostly from L2: a tile of rays touches a
-// small patch of each plane), while the full decoder is ~0.26 MFLOP (4+4
-// layers of width 128). At 989 TFLOP/s bf16 and 3.35 TB/s the two are
-// within a factor of a few of each other, so neither alone is the wall;
-// what limits this simple design is latency and shared-memory traffic.
+// small patch of each plane; bicubic: 16 taps, 4608 B), while the full
+// decoder is ~0.26 MFLOP (4+4 layers of width 128). At 989 TFLOP/s bf16
+// and 3.35 TB/s the two are within a factor of a few of each other, so
+// neither alone is the wall; what limits this simple design is latency
+// and shared-memory traffic.
 //
 // What the simple design does about it. The TPU design (vertical-pair
 // tables, per-chunk region DMAs, hat-weight gather matmuls, region clamps
@@ -32,10 +46,12 @@
 // here a point's taps are plain 16-byte loads, so none of it is carried
 // over. One block of 4 warps takes 64 consecutive points:
 //   phase 0: one thread per (point, plane) computes the tap offsets and
-//            weights into shared memory;
+//            weights into shared memory (bicubic: 4 row and 4 col offsets,
+//            16 weights);
 //   phase 1: one thread per (point, 8 channels) loads the 12 taps (3 planes
-//            x 4) as 16-byte vectors and writes f0, f1, f2 and comb (bf16)
-//            to shared memory, plus the ray's view row;
+//            x 4; bicubic 48, row by row) as 16-byte vectors and writes f0,
+//            f1, f2 and comb (bf16) to shared memory, plus the ray's view
+//            row;
 //   phase 2: layer by layer, the layer's bf16 weight block is staged into
 //            shared memory and each warp multiplies its 16 points with
 //            nvcuda::wmma (bf16, f32 accumulate), adds the bias, applies
@@ -48,6 +64,8 @@
 #include <mma.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "sampling.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -101,7 +119,14 @@ __host__ __device__ inline int layer_rows(bool rgb, int ln, int every,
   return is_skip(every, ln - 1) ? kWidth + first : kWidth;
 }
 
-Layout make_layout(int cp, int cvp, int max_rows) {
+// per (point, plane) in shared memory: tap offsets and weights
+template <bool kCubic> struct TapShape {
+  static constexpr int kInts = kCubic ? 8 : 4;     // cubic: 4 rows, 4 cols
+  static constexpr int kFloats = kCubic ? 16 : 3;  // cubic: w[row][col]
+};
+
+Layout make_layout(int cp, int cvp, int max_rows, int tap_ints,
+                   int tap_floats) {
   Layout L;
   L.ldf = cp + 8;
   L.ldv = cvp + 8;
@@ -114,8 +139,8 @@ Layout make_layout(int cp, int cvp, int max_rows) {
   unsigned hbytes = 2 * kWidth * kLdHead * 2;
   L.wbuf = off;  off = align128(off + (wbytes > hbytes ? wbytes : hbytes));
   L.stage = off; off = align128(off + kWarps * 2 * 256 * 4);
-  L.taps = off;  off = align128(off + kPoints * 3 * 4 * 4);
-  L.wts = off;   off = align128(off + kPoints * 3 * 3 * 4);
+  L.taps = off;  off = align128(off + kPoints * 3 * tap_ints * 4);
+  L.wts = off;   off = align128(off + kPoints * 3 * tap_floats * 4);
   L.total = off;
   return L;
 }
@@ -171,16 +196,17 @@ __device__ inline void mma_layer(const Part* parts, int nparts,
   }
 }
 
-__device__ inline float unnormalize(float g, int size, bool align_corners) {
-  if (align_corners)
-    return __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f), (float)(size - 1));
-  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f),
-                   0.5f);
+// offset from y0 of the r-th bicubic window row in feature-sum order:
+// y0, y0+1, y0-1, y0+2
+__device__ inline int cubic_row(int r) {
+  return r == 2 ? -1 : (r == 3 ? 2 : r);
 }
 
-template <bool kSigmaOnly>
+template <bool kSigmaOnly, bool kCubic>
 __global__ void __launch_bounds__(kThreads)
 triplane_render_kernel(const Params P, const Layout L) {
+  constexpr int kInts = TapShape<kCubic>::kInts;
+  constexpr int kFloats = TapShape<kCubic>::kFloats;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* hd = reinterpret_cast<bf16*>(smem + L.hd);
   bf16* hr = reinterpret_cast<bf16*>(smem + L.hr);
@@ -201,8 +227,10 @@ triplane_render_kernel(const Params P, const Layout L) {
   for (int item = tid; item < kPoints * 3; item += kThreads) {
     const int i = item / 3, pl = item % 3;
     const long long n = base + i;
-    int t0 = 0, t1 = 0, t2 = 0, t3 = 0;
-    float w0 = 0.0f, w1 = 0.0f, ty = 0.0f;
+    int* t = taps + item * kInts;
+    float* wv = wts + item * kFloats;
+    for (int k = 0; k < kInts; ++k) t[k] = 0;
+    for (int k = 0; k < kFloats; ++k) wv[k] = 0.0f;
     if (n < N) {
       const long long r = n / P.S;
       const float zz = P.z[n];
@@ -223,24 +251,41 @@ triplane_render_kernel(const Params P, const Layout L) {
       const float gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
                                            __fmul_rn(nc[1], rot[1][1])),
                                  __fmul_rn(nc[2], rot[2][1]));
-      const float x = fminf(fmaxf(unnormalize(gx, P.W, ac), 0.0f),
-                            (float)(P.W - 1));
-      const float y = fminf(fmaxf(unnormalize(gy, P.H, ac), 0.0f),
-                            (float)(P.H - 1));
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float tx = __fsub_rn(x, x0f);
-      ty = __fsub_rn(y, y0f);
-      const int x0 = min((int)x0f, P.W - 1), y0 = min((int)y0f, P.H - 1);
-      const int x1 = min(x0 + 1, P.W - 1), y1 = min(y0 + 1, P.H - 1);
-      const int row0 = (pl * P.H + y0) * P.W, row1 = (pl * P.H + y1) * P.W;
-      t0 = row0 + x0; t1 = row0 + x1; t2 = row1 + x0; t3 = row1 + x1;
-      w0 = __bfloat162float(__float2bfloat16_rn(__fsub_rn(1.0f, tx)));
-      w1 = __bfloat162float(__float2bfloat16_rn(tx));
+      if (kCubic) {
+        // t[0:4] = row starts (cells) in cubic_row order, t[4:8] = cols
+        // x0-1 .. x0+2; wv[r * 4 + c] = bf16(wx_c * wy_r)
+        int x0, y0;
+        float tx, ty;
+        cubic_coord(unnormalize(gx, P.W, ac), P.W, &x0, &tx);
+        cubic_coord(unnormalize(gy, P.H, ac), P.H, &y0, &ty);
+        float wx[4];
+        for (int c = 0; c < 4; ++c) {
+          wx[c] = cubic_weight(__fsub_rn((float)(c - 1), tx));
+          t[4 + c] = min(max(x0 - 1 + c, 0), P.W - 1);
+        }
+        for (int r = 0; r < 4; ++r) {
+          const int dy = cubic_row(r);
+          t[r] = (pl * P.H + min(max(y0 + dy, 0), P.H - 1)) * P.W;
+          const float wy = cubic_weight(__fsub_rn((float)dy, ty));
+          for (int c = 0; c < 4; ++c)
+            wv[r * 4 + c] = bf16r(__fmul_rn(wx[c], wy));
+        }
+      } else {
+        const float x = fminf(fmaxf(unnormalize(gx, P.W, ac), 0.0f),
+                              (float)(P.W - 1));
+        const float y = fminf(fmaxf(unnormalize(gy, P.H, ac), 0.0f),
+                              (float)(P.H - 1));
+        const float x0f = floorf(x), y0f = floorf(y);
+        const float tx = __fsub_rn(x, x0f);
+        const int x0 = min((int)x0f, P.W - 1), y0 = min((int)y0f, P.H - 1);
+        const int x1 = min(x0 + 1, P.W - 1), y1 = min(y0 + 1, P.H - 1);
+        const int row0 = (pl * P.H + y0) * P.W, row1 = (pl * P.H + y1) * P.W;
+        t[0] = row0 + x0; t[1] = row0 + x1; t[2] = row1 + x0; t[3] = row1 + x1;
+        wv[0] = bf16r(__fsub_rn(1.0f, tx));
+        wv[1] = bf16r(tx);
+        wv[2] = __fsub_rn(y, y0f);
+      }
     }
-    int* t = taps + item * 4;
-    t[0] = t0; t[1] = t1; t[2] = t2; t[3] = t3;
-    float* wv = wts + item * 3;
-    wv[0] = w0; wv[1] = w1; wv[2] = ty;
   }
   __syncthreads();
 
@@ -251,28 +296,52 @@ triplane_render_kernel(const Params P, const Layout L) {
     float comb[8];
 #pragma unroll
     for (int pl = 0; pl < 3; ++pl) {
-      const int* t = taps + (i * 3 + pl) * 4;
-      const float* wv = wts + (i * 3 + pl) * 3;
-      const float w0 = wv[0], w1 = wv[1], ty = wv[2];
-      uint4 q[4];
+      const int* t = taps + (i * 3 + pl) * kInts;
+      const float* wv = wts + (i * 3 + pl) * kFloats;
+      float f[8];
+      if (kCubic) {
+        for (int r = 0; r < 4; ++r) {
+          uint4 q[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        q[k] = __ldg(reinterpret_cast<const uint4*>(
-            P.table + (size_t)t[k] * cp + c8));
-      const bf16* v00 = reinterpret_cast<const bf16*>(&q[0]);
-      const bf16* v01 = reinterpret_cast<const bf16*>(&q[1]);
-      const bf16* v10 = reinterpret_cast<const bf16*>(&q[2]);
-      const bf16* v11 = reinterpret_cast<const bf16*>(&q[3]);
+          for (int c = 0; c < 4; ++c)
+            q[c] = __ldg(reinterpret_cast<const uint4*>(
+                P.table + ((size_t)t[r] + t[4 + c]) * cp + c8));
+          const bf16* v = reinterpret_cast<const bf16*>(q);  // v[c * 8 + e]
+          const float* w = wv + r * 4;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float row = __fmul_rn(w[0], __bfloat162float(v[e]));
+#pragma unroll
+            for (int c = 1; c < 4; ++c)
+              row = __fadd_rn(row,
+                              __fmul_rn(w[c], __bfloat162float(v[c * 8 + e])));
+            f[e] = r == 0 ? row : __fadd_rn(f[e], row);
+          }
+        }
+      } else {
+        const float w0 = wv[0], w1 = wv[1], ty = wv[2];
+        uint4 q[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          q[k] = __ldg(reinterpret_cast<const uint4*>(
+              P.table + (size_t)t[k] * cp + c8));
+        const bf16* v = reinterpret_cast<const bf16*>(q);  // v[k * 8 + e]
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float top =
+              __fadd_rn(__fmul_rn(w0, __bfloat162float(v[e])),
+                        __fmul_rn(w1, __bfloat162float(v[8 + e])));
+          const float bot =
+              __fadd_rn(__fmul_rn(w0, __bfloat162float(v[16 + e])),
+                        __fmul_rn(w1, __bfloat162float(v[24 + e])));
+          f[e] = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
+        }
+      }
       __align__(16) bf16 fo[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float top = __fadd_rn(__fmul_rn(w0, __bfloat162float(v00[e])),
-                                    __fmul_rn(w1, __bfloat162float(v01[e])));
-        const float bot = __fadd_rn(__fmul_rn(w0, __bfloat162float(v10[e])),
-                                    __fmul_rn(w1, __bfloat162float(v11[e])));
-        const float f = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
-        comb[e] = pl == 0 ? f : __fadd_rn(comb[e], f);
-        fo[e] = __float2bfloat16_rn(f);
+        comb[e] = pl == 0 ? f[e] : __fadd_rn(comb[e], f[e]);
+        fo[e] = __float2bfloat16_rn(f[e]);
       }
       *reinterpret_cast<uint4*>(feat + (pl * kPoints + i) * ldf + c8) =
           *reinterpret_cast<const uint4*>(fo);
@@ -368,7 +437,7 @@ triplane_render_kernel(const Params P, const Layout L) {
   }
 }
 
-template <bool kSigmaOnly>
+template <bool kSigmaOnly, bool kCubic>
 int launch(const Params& p, cudaStream_t stream) {
   int max_rows = 0;
   for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
@@ -378,15 +447,17 @@ int launch(const Params& p, cudaStream_t stream) {
       if (rows > max_rows) max_rows = rows;
     }
   }
-  const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp, max_rows);
+  const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp, max_rows,
+                               TapShape<kCubic>::kInts,
+                               TapShape<kCubic>::kFloats);
   cudaError_t err = cudaFuncSetAttribute(
-      triplane_render_kernel<kSigmaOnly>,
+      triplane_render_kernel<kSigmaOnly, kCubic>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)p.R * p.S;
   const long long blocks = (n + kPoints - 1) / kPoints;
   if (blocks > 0)
-    triplane_render_kernel<kSigmaOnly>
+    triplane_render_kernel<kSigmaOnly, kCubic>
         <<<(unsigned)blocks, kThreads, L.total, stream>>>(p, L);
   return (int)cudaGetLastError();
 }
@@ -426,11 +497,21 @@ Params make_params(const void* table, int H, int W, int cp,
       n_density, n_rgb, skip_every, geom_host, align_corners, avg, out
 
 extern "C" int triplane_render_full(TRIPLANE_ARGS) {
-  return launch<false>(make_params(TRIPLANE_PASS),
-                       static_cast<cudaStream_t>(stream));
+  return launch<false, false>(make_params(TRIPLANE_PASS),
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int triplane_render_sigma_only(TRIPLANE_ARGS) {
-  return launch<true>(make_params(TRIPLANE_PASS),
-                      static_cast<cudaStream_t>(stream));
+  return launch<true, false>(make_params(TRIPLANE_PASS),
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int triplane_render_cubic_full(TRIPLANE_ARGS) {
+  return launch<false, true>(make_params(TRIPLANE_PASS),
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int triplane_render_cubic_sigma_only(TRIPLANE_ARGS) {
+  return launch<true, true>(make_params(TRIPLANE_PASS),
+                            static_cast<cudaStream_t>(stream));
 }

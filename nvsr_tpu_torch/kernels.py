@@ -3,8 +3,9 @@
 Each source under csrc/ is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, loaded with ctypes (no PyTorch
 headers, so a build takes seconds). Libraries go to build/nvsr_tpu_torch/
-beside the package, named by a hash of the source and flags so a changed
-source is rebuilt; they are built at first use, never at import. Every C
+beside the package, named by a hash of the source, the csrc/ headers and
+the flags so a changed source is rebuilt; they are built at first use,
+never at import. Every C
 entry returns the cudaError_t of its launch and the wrapper raises on a
 non-zero value. Each entry keeps a count of its launches (`launches`).
 """
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
@@ -115,14 +117,21 @@ triplane_render_full = CudaKernel(
     "triplane_render.cu", "triplane_render_full", _TRIPLANE_ARGS)
 triplane_render_sigma_only = CudaKernel(
     "triplane_render.cu", "triplane_render_sigma_only", _TRIPLANE_ARGS)
+triplane_render_cubic_full = CudaKernel(
+    "triplane_render.cu", "triplane_render_cubic_full", _TRIPLANE_ARGS)
+triplane_render_cubic_sigma_only = CudaKernel(
+    "triplane_render.cu", "triplane_render_cubic_sigma_only", _TRIPLANE_ARGS)
+_SAMPLE_FWD_ARGS = [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P]
 plane_sample_fwd = CudaKernel(
-    "plane_sample.cu", "plane_sample_fwd",
-    [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P])
+    "plane_sample.cu", "plane_sample_fwd", _SAMPLE_FWD_ARGS)
+plane_sample_cubic_fwd = CudaKernel(
+    "plane_sample.cu", "plane_sample_cubic_fwd", _SAMPLE_FWD_ARGS)
 plane_sample_bwd = CudaKernel(
     "plane_sample.cu", "plane_sample_bwd",
     [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
 KERNELS = (triplane_render_full, triplane_render_sigma_only,
-           plane_sample_fwd, plane_sample_bwd)
+           triplane_render_cubic_full, triplane_render_cubic_sigma_only,
+           plane_sample_fwd, plane_sample_cubic_fwd, plane_sample_bwd)
 
 
 def _check(t, name, dtype, device, shape=None, aligned=False):
@@ -137,10 +146,11 @@ def _check(t, name, dtype, device, shape=None, aligned=False):
 
 
 def triplane_render(table, packed, origins, directions, z_vals, view, geom,
-                    *, align_corners: bool, avg: bool,
-                    sigma_only: bool) -> torch.Tensor:
+                    *, align_corners: bool, avg: bool, sigma_only: bool,
+                    cubic: bool = False) -> torch.Tensor:
     """Launch csrc/triplane_render.cu on the current stream -> [R, S, 4]
-    f32 (see ops/fused_render.py for the arguments and the math)."""
+    f32 (see ops/fused_render.py for the arguments and the math); cubic:
+    the bicubic entries."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("triplane_render needs CUDA tensors")
@@ -165,7 +175,11 @@ def triplane_render(table, packed, origins, directions, z_vals, view, geom,
     if r * s == 0:
         return out
     g = (ctypes.c_float * 24)(*[float(v) for v in geom])
-    kern = triplane_render_sigma_only if sigma_only else triplane_render_full
+    kern = {(False, False): triplane_render_full,
+            (True, False): triplane_render_sigma_only,
+            (False, True): triplane_render_cubic_full,
+            (True, True): triplane_render_cubic_sigma_only}[(sigma_only,
+                                                             cubic)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kern(table.data_ptr(), h, w, cp, origins.data_ptr(),
@@ -181,10 +195,12 @@ _INT_MAX = 2 ** 31 - 1
 
 
 def plane_sample_forward(table, grids, channels: int, *,
-                         align_corners: bool) -> torch.Tensor:
-    """Launch plane_sample_fwd (csrc/plane_sample.cu) on the current
-    stream: bf16 table [P, H, W, Cp] at grids [P, N, 2] f32 -> [P, N,
-    channels] f32 (see ops/plane_sample.py for the math)."""
+                         align_corners: bool,
+                         cubic: bool = False) -> torch.Tensor:
+    """Launch plane_sample_fwd (cubic: plane_sample_cubic_fwd) of
+    csrc/plane_sample.cu on the current stream: bf16 table [P, H, W, Cp]
+    at grids [P, N, 2] f32 -> [P, N, channels] f32 (see
+    ops/plane_sample.py for the math)."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError("plane_sample_forward needs CUDA tensors")
@@ -200,9 +216,9 @@ def plane_sample_forward(table, grids, channels: int, *,
     out = torch.empty((p, n, channels), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        plane_sample_fwd(table.data_ptr(), p, h, w, cp, channels,
-                         grids.data_ptr(), n, int(align_corners),
-                         out.data_ptr(), stream)
+        kern = plane_sample_cubic_fwd if cubic else plane_sample_fwd
+        kern(table.data_ptr(), p, h, w, cp, channels, grids.data_ptr(), n,
+             int(align_corners), out.data_ptr(), stream)
     return out
 
 

@@ -87,6 +87,33 @@ class PlaneSRConfig:
     # one plane at a time
     train_batch: bool = False
 
+    @classmethod
+    def from_cfg(cls, sr_cfg, scale_factor: int, plane_channels: int,
+                 plane_interp: str, align_corners: bool) -> "PlaneSRConfig":
+        """Build from a reference-style `super_resolution` YAML section,
+        as the JAX from_cfg (its unported fields are not read): the
+        residual mode is `plane_resize_mode`, else the triplane's
+        plane_interp."""
+        model = sr_cfg.get("model", {})
+        return cls(
+            arch=model.get("type", "EDSR"),
+            in_channels=plane_channels,
+            out_channels=plane_channels,
+            hidden_size=model.get("hidden_size", 256),
+            n_blocks=model.get("n_blocks", 32),
+            scale_factor=scale_factor,
+            receptive_field_bound=model.get("receptive_field_bound",
+                                            _INT32_MAX),
+            plane_interp=sr_cfg.get("plane_resize_mode", plane_interp),
+            align_corners=align_corners,
+            input_normalization=sr_cfg.get("input_normalization", False),
+            sr_input_noise=sr_cfg.get("sr_input_noise", 0.0),
+            sr_output_noise=sr_cfg.get("sr_output_noise", 0.0),
+            compute_dtype=model.get("compute_dtype", None),
+            remat=model.get("remat", True),
+            remat_every=model.get("remat_every", 1),
+            train_batch=model.get("train_batch", False))
+
     def _padding_raw(self) -> float:
         if self.arch != "EDSR":
             return 0.0
@@ -197,16 +224,14 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
                    train: bool = False,
                    generator: Optional[torch.Generator] = None):
     """Super-resolution of feature planes: [P, C, H, W] -> [P, C, sH, sW]
-    = crop(EDSR(edge_pad(norm(planes + in_noise)))) + bilinear_up(planes)
-    (+ out_noise). Eval runs all planes as one conv batch; training
+    = crop(EDSR(edge_pad(norm(planes + in_noise)))) + up(planes)
+    (+ out_noise), `up` the cfg.plane_interp resize (bilinear or
+    bicubic). Eval runs all planes as one conv batch; training
     (train=True) runs them one at a time unless cfg.train_batch, and
     with a generator adds sr_input_noise (std relative to the planes'
     std) and sr_output_noise (relative to the detached EDSR output's)."""
     if cfg.arch != "EDSR":
         raise NotImplementedError(f"SR arch {cfg.arch!r} is not ported yet")
-    if cfg.plane_interp != "bilinear":
-        raise NotImplementedError(
-            f"residual upsample mode {cfg.plane_interp!r} is not ported yet")
     x = lr_planes
     noisy = train and generator is not None
     if noisy and cfg.sr_input_noise > 0:
@@ -228,7 +253,8 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
     if over > 0:
         diff = diff[..., over:-over, over:-over]
     residual = upsample_plane(lr_planes, cfg.scale_factor,
-                              align_corners=cfg.align_corners)
+                              align_corners=cfg.align_corners,
+                              mode=cfg.plane_interp)
     out = diff + residual
     if noisy and cfg.sr_output_noise > 0:
         std = cfg.sr_output_noise * torch.std(diff.detach(), correction=0)

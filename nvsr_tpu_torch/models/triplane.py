@@ -1,7 +1,8 @@
 """Triplane scene model (counterpart of nvsr_tpu/models/triplane.py):
 parameter init, the reference (non-kernel) path, and the kernel paths
-of `apply_triplane_rays_from_z` (the fused eval gather+decode, and the
-trainable plane sampler).
+of `apply_triplane_rays_from_z` (the fused eval gather+decode; the eval
+plane sampler with the plain decoder, for configs the fused kernel does
+not take; and the trainable plane sampler).
 
 Decoder parameters are the JAX pytree layout with torch tensors
 (`bridge.decoder_from_jax`, `init_decoder_params`): {"members":
@@ -267,13 +268,18 @@ def _mlp_branch(layers, fc_out, x_in, cfg: TriplaneConfig):
 
 def sample_planes(planes_pos, grids, cfg: TriplaneConfig,
                   trainable: bool = False):
-    """[P, C, H, W] planes at [P, N, 2] grids -> [P, N, C] (bilinear,
-    taps rounded to cfg.gather_table_dtype). trainable: through the
+    """[P, C, H, W] planes at [P, N, 2] grids -> [P, N, C]: bilinear with
+    taps rounded to cfg.gather_table_dtype, or bicubic in f32 (which
+    ignores gather_table_dtype, as in JAX). trainable: through the
     trainable plane sampler's kernels instead (ops/plane_sample.py: bf16
-    taps and x-weights, bf16 rows, whatever gather_table_dtype says)."""
-    if cfg.plane_interp != "bilinear":
-        raise NotImplementedError(
-            f"plane_interp={cfg.plane_interp!r} is not ported yet")
+    taps and x-weights, bf16 rows, whatever gather_table_dtype says);
+    bilinear only, as the JAX trainable tiled route."""
+    if cfg.plane_interp == "bicubic":
+        if trainable:
+            raise ValueError("the trainable plane sampler is bilinear-only")
+        return multi_plane_sample(planes_pos, grids,
+                                  align_corners=cfg.align_corners,
+                                  mode="bicubic")
     if trainable:
         from nvsr_tpu_torch.ops.plane_sample import plane_sample
         return plane_sample(planes_pos, grids, cfg.align_corners)
@@ -284,20 +290,21 @@ def sample_planes(planes_pos, grids, cfg: TriplaneConfig,
 
 def sample_viewdir_plane(plane_view, viewdirs, box, cfg: TriplaneConfig,
                          dense: bool = False):
-    """Unit viewdirs [N, 3] -> view-plane features [N, Cv].
+    """Unit viewdirs [N, 3] -> view-plane features [N, Cv] (bilinear or
+    bicubic, cfg.plane_interp).
 
-    dense=True: the tiled eval path's sampler (bf16 weights and taps,
-    f32 accumulation; JAX takes it for view planes up to 4096 cells)."""
-    if cfg.plane_interp != "bilinear":
-        raise NotImplementedError(
-            f"plane_interp={cfg.plane_interp!r} is not ported yet")
+    dense=True: the tiled eval path's bilinear sampler (bf16 weights and
+    taps, f32 accumulation; JAX takes it for view planes up to 4096
+    cells); bicubic always takes the f32 sampler."""
     azel = cart2az_el(viewdirs)
     box = torch.as_tensor(box, dtype=viewdirs.dtype, device=viewdirs.device)
     azel_n = normalize_coords(azel, box[:, 3:])
-    if dense and plane_view.shape[-2] * plane_view.shape[-1] <= 4096:
+    if (dense and cfg.plane_interp == "bilinear"
+            and plane_view.shape[-2] * plane_view.shape[-1] <= 4096):
         return dense_bilinear_sample(plane_view, azel_n,
                                      align_corners=cfg.align_corners)
-    return grid_sample_2d(plane_view, azel_n, align_corners=cfg.align_corners)
+    return grid_sample_2d(plane_view, azel_n, align_corners=cfg.align_corners,
+                          mode=cfg.plane_interp)
 
 
 def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
@@ -382,10 +389,17 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
     """Kernel forward straight from rays: origins/directions [R, 3],
     z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}).
 
-    Eval (default): the fused gather+decode kernel (ops/fused_render.py).
-    `table`, `packed` and `geom` are the per-scene plane table, packed
-    decoder and kernel geometry; built here when not given
-    (make_triplane_point_fn builds them once per point fn).
+    Eval (default), on a config fused_render.supports: the fused
+    gather+decode kernel (ops/fused_render.py), bilinear or bicubic.
+    On any other config (an f32 decoder, the common case): the points
+    o + d*z projected onto the planes, the positional planes through the
+    eval plane sampler's kernel (ops/plane_sample.py, bilinear or
+    bicubic), the view plane through the plain sampler, and
+    decode_projections in plain torch at the config's own dtype (JAX
+    triplane.py:707-760). `table`, `packed` and `geom` are the per-scene
+    plane table (both routes), packed decoder and kernel geometry; built
+    here when not given (make_triplane_point_fn builds them once per
+    point fn).
 
     trainable: the training route, apply_triplane_rays on the points
     o + d*z with the three positional-plane gathers through the trainable
@@ -404,23 +418,42 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
     assert noise_generator is None, \
         "point_coords_noise requires the trainable route"
     from nvsr_tpu_torch.ops import fused_render
-    if not fused_render.supports(cfg):
-        raise ValueError(f"the fused triplane kernel does not support {cfg}")
+    cubic = cfg.plane_interp == "bicubic"
+    rot = rot_mats if rot_mats is not None else make_rot_mats(cfg.num_planes)
     if table is None:
         table = fused_render.build_plane_table(planes_pos)
+    vp_ray = None
+    if cfg.use_viewdirs and not sigma_only:
+        vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg,
+                                      dense=True)
+    if not fused_render.supports(cfg):
+        from nvsr_tpu_torch.ops.plane_sample import sample_forward
+        r, s = z_vals.shape
+        pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+        box_t = torch.as_tensor(box, dtype=pts.dtype, device=pts.device)
+        grids = project_to_planes(
+            normalize_coords(pts.reshape(-1, 3), box_t[:, :3]), rot)
+        # all Cp table channels (the kernel takes multiples of 8), then
+        # the config's
+        pos_projs = sample_forward(table, grids.contiguous(),
+                                   table.shape[-1], cfg.align_corners,
+                                   cubic)[..., :cfg.num_plane_channels]
+        view_proj = None
+        if vp_ray is not None:
+            view_proj = vp_ray[:, None, :].expand(
+                r, s, vp_ray.shape[-1]).reshape(r * s, -1)
+        out = decode_projections(params, cfg, pos_projs, view_proj,
+                                 member=member, sigma_only=sigma_only)
+        return out.reshape(r, s, 4), {"overflow_frac": 0.0}
     if packed is None:
         packed = fused_render.pack_decoder(params, cfg, member)
     if geom is None:
-        rot = rot_mats if rot_mats is not None \
-            else make_rot_mats(cfg.num_planes)
         geom = fused_render.geometry_args(box, rot)
-    view = None
-    if not sigma_only:
-        vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg,
-                                      dense=True)
-        view = fused_render.view_rows(vp_ray, packed.cvp)
+    view = None if sigma_only else fused_render.view_rows(vp_ray,
+                                                          packed.cvp)
     return fused_render.fused_render_rays(
         table, packed, origins, directions, z_vals, view, geom,
         align_corners=cfg.align_corners,
-        avg=cfg.proj_combination == "avg", sigma_only=sigma_only)
+        avg=cfg.proj_combination == "avg", sigma_only=sigma_only,
+        cubic=cubic)
 

@@ -14,6 +14,13 @@ What both compute, per point of rays x sorted depths (ray-major):
     bf16 x-weights bf16(1 - tx), bf16(tx); the two rows are interpolated
     in f32 and y-lerped in f32 as top + ty * (bot - top) (the shipped
     JAX kernel's single-M gather, tile_sampler.py:1115-1123);
+  * cubic (plane_interp 'bicubic', the TPU kernel's interp="cubic"
+    branch, tile_sampler.py:1131-1143): the 4x4 bicubic window of each
+    plane (source coordinate clipped to [-1, size], taps clamped; see
+    ops/grid_sample.py::cubic_taps) with bf16 weights
+    bf16(cubic(i - tx) * cubic(j - ty)), f32 row sums, and the rows summed
+    in f32 in the order y0, y0+1, y0-1, y0+2 (the TPU kernel's A rows,
+    then its B rows);
   * comb = (f0 + f1 + f2) [/ 3] in f32; the density MLP on comb, the rgb
     MLP on [f0, f1, f2, view]; bf16 operands, f32 accumulation, f32 bias,
     relu activations kept in bf16; skip layers re-concatenate the branch
@@ -37,7 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nvsr_tpu_torch.ops.grid_sample import _corners
+from nvsr_tpu_torch.ops.grid_sample import (_corners, cubic_taps,
+                                            cubic_weight)
 
 WIDTH = 128        # decoder width the kernel supports (dec_channels)
 HEAD_COLS = 16     # head block width: rgb in cols 0:3, sigma in col 3
@@ -51,9 +59,9 @@ def _round_up(x: int, m: int) -> int:
 def supports(cfg) -> bool:
     """True when the kernel computes this triplane config. compute_dtype
     must be explicitly bfloat16 (the kernel's matmuls are bf16), as in
-    the JAX fused_decoder.supports."""
+    the JAX fused_decoder.supports; both plane_interp modes are taken."""
     return (cfg.compute_dtype == "bfloat16"
-            and cfg.plane_interp == "bilinear"
+            and cfg.plane_interp in ("bilinear", "bicubic")
             and cfg.num_planes == 3
             and cfg.proj_combination in ("avg", "sum")
             and cfg.viewdir_combination == "concat_pos"
@@ -196,43 +204,73 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def gather_features(table, origins, directions, z_vals, geom,
-                    align_corners: bool):
-    """The kernel's plane gather: -> 3 x [R*S, Cp] f32 features."""
-    _, h, w, cp = table.shape
-    g = torch.as_tensor(geom, device=table.device)
+def plane_grids(origins, directions, z_vals, geom):
+    """The kernel's point projection: rays x depths -> 3 x [R*S, 2] f32
+    normalized plane coordinates (x, y)."""
+    g = torch.as_tensor(geom, device=origins.device)
     lo, hi, rot = g[0:3], g[3:6], g[6:].reshape(3, 3, 2)
     pts = (origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
            ).reshape(-1, 3)
     n = 2.0 * (pts - lo) / (hi - lo) - 1.0
-    feats = []
+    grids = []
     for p in range(3):
         gx = n[:, 0] * rot[p, 0, 0] + n[:, 1] * rot[p, 1, 0] \
             + n[:, 2] * rot[p, 2, 0]
         gy = n[:, 0] * rot[p, 0, 1] + n[:, 1] * rot[p, 1, 1] \
             + n[:, 2] * rot[p, 2, 1]
-        x, y, x0, x1, y0, y1 = _corners(torch.stack([gx, gy], dim=-1), h, w,
-                                        align_corners)
-        tx = (x - torch.floor(x))[:, None]
-        ty = (y - torch.floor(y))[:, None]
-        w0, w1 = _bf16(1.0 - tx), _bf16(tx)
-        cells = table[p].reshape(h * w, cp)
-        v00, v01 = cells[y0 * w + x0].float(), cells[y0 * w + x1].float()
-        v10, v11 = cells[y1 * w + x0].float(), cells[y1 * w + x1].float()
-        top = w0 * v00 + w1 * v01
-        bot = w0 * v10 + w1 * v11
-        feats.append(top + ty * (bot - top))
-    return feats
+        grids.append(torch.stack([gx, gy], dim=-1))
+    return grids
+
+
+# bicubic window rows (offsets from y0) in the kernel's summation order
+CUBIC_ROWS = (0, 1, -1, 2)
+
+
+def _bilinear_feature(cells, grid, h: int, w: int, align_corners: bool):
+    x, y, x0, x1, y0, y1 = _corners(grid, h, w, align_corners)
+    tx = (x - torch.floor(x))[:, None]
+    ty = (y - torch.floor(y))[:, None]
+    w0, w1 = _bf16(1.0 - tx), _bf16(tx)
+    v00, v01 = cells[y0 * w + x0].float(), cells[y0 * w + x1].float()
+    v10, v11 = cells[y1 * w + x0].float(), cells[y1 * w + x1].float()
+    top = w0 * v00 + w1 * v01
+    bot = w0 * v10 + w1 * v11
+    return top + ty * (bot - top)
+
+
+def _cubic_feature(cells, grid, h: int, w: int, align_corners: bool):
+    cols, rows, tx, ty = cubic_taps(grid, h, w, align_corners)
+    wx = [cubic_weight((i - 1) - tx) for i in range(4)]
+    feat = None
+    for dy in CUBIC_ROWS:
+        wy = cubic_weight(dy - ty)
+        base = rows[:, dy + 1] * w
+        row = None
+        for i in range(4):
+            term = _bf16(wx[i] * wy) * cells[base + cols[:, i]].float()
+            row = term if row is None else row + term
+        feat = row if feat is None else feat + row
+    return feat
+
+
+def gather_features(table, origins, directions, z_vals, geom,
+                    align_corners: bool, cubic: bool = False):
+    """The kernel's plane gather: -> 3 x [R*S, Cp] f32 features."""
+    _, h, w, cp = table.shape
+    sample = _cubic_feature if cubic else _bilinear_feature
+    return [sample(table[p].reshape(h * w, cp), grid, h, w, align_corners)
+            for p, grid in enumerate(plane_grids(origins, directions,
+                                                 z_vals, geom))]
 
 
 def fused_render_reference(table, packed: PackedDecoder, origins,
                            directions, z_vals, view, geom, *,
-                           align_corners: bool, avg: bool,
-                           sigma_only: bool) -> torch.Tensor:
+                           align_corners: bool, avg: bool, sigma_only: bool,
+                           cubic: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> [R, S, 4] f32."""
     r, s = z_vals.shape
     f0, f1, f2 = gather_features(table, origins, directions, z_vals, geom,
-                                 align_corners)
+                                 align_corners, cubic)
     comb = f0 + f1 + f2
     if avg:
         comb = comb / 3.0
@@ -261,22 +299,23 @@ def fused_render_reference(table, packed: PackedDecoder, origins,
 
 def fused_render_rays(table, packed: PackedDecoder, origins, directions,
                       z_vals, view: Optional[torch.Tensor], geom, *,
-                      align_corners: bool, avg: bool, sigma_only: bool):
+                      align_corners: bool, avg: bool, sigma_only: bool,
+                      cubic: bool = False):
     """Gather + decode for rays [R, 3] x depths [R, S] ->
     ([R, S, 4] f32 ray-major, {"overflow_frac": 0.0}); geom from
-    geometry_args.
+    geometry_args; cubic: the bicubic gather.
 
     A CPU table runs the plain version; any other table goes to the
     kernel (kernels.triplane_render), which launches on a CUDA table and
     raises on any other device or on any failure."""
+    kw = dict(align_corners=align_corners, avg=avg, sigma_only=sigma_only,
+              cubic=cubic)
     if table.device.type == "cpu":
-        out = fused_render_reference(
-            table, packed, origins, directions, z_vals, view, geom,
-            align_corners=align_corners, avg=avg, sigma_only=sigma_only)
+        out = fused_render_reference(table, packed, origins, directions,
+                                     z_vals, view, geom, **kw)
     else:
         from nvsr_tpu_torch import kernels
         out = kernels.triplane_render(
             table, packed, origins.contiguous(), directions.contiguous(),
-            z_vals.contiguous(), view, geom,
-            align_corners=align_corners, avg=avg, sigma_only=sigma_only)
+            z_vals.contiguous(), view, geom, **kw)
     return out, {"overflow_frac": 0.0}

@@ -1,11 +1,13 @@
-"""Bilinear feature-plane sampling (counterpart of
-nvsr_tpu/ops/grid_sample.py, bilinear path).
+"""Bilinear and bicubic feature-plane sampling (counterpart of
+nvsr_tpu/ops/grid_sample.py).
 
 Planes are [C, H, W]; grid [..., 2] holds (x, y) in [-1, 1], x indexing
-W. Border padding clips the source coordinate before the weights are
-taken. Only the semantics of the JAX packed-tap tables are ported: the
-packed table is a TPU gather workaround, and its `table_dtype` becomes
-`tap_dtype` here (taps rounded to that dtype, weights kept in f32).
+W. Bilinear border padding clips the source coordinate before the
+weights are taken; bicubic does not clip it and clamps the 4x4 tap
+indices instead (torch grid_sample semantics). Only the semantics of the
+JAX packed-tap tables are ported: the packed table is a TPU gather
+workaround, and its `table_dtype` becomes `tap_dtype` here (taps rounded
+to that dtype, weights kept in f32; bilinear only, as in JAX).
 """
 
 from __future__ import annotations
@@ -36,15 +38,77 @@ def _corners(grid, height: int, width: int, align_corners: bool):
     return x, y, x0, x1, y0, y1
 
 
+def cubic_weight(d, A: float = -0.75):
+    """Torch's cubic convolution kernel at signed tap distance d, in the
+    Horner form of the TPU kernels (tile_sampler.py::_cubic_weight) and of
+    csrc/sampling.cuh: one rounded f32 operation per step."""
+    ad = torch.abs(d)
+    near = ((A + 2.0) * ad - (A + 3.0)) * ad * ad + 1.0
+    far = ((A * ad - 5.0 * A) * ad + 8.0 * A) * ad - 4.0 * A
+    return torch.where(ad <= 1.0, near,
+                       torch.where(ad < 2.0, far, torch.zeros_like(ad)))
+
+
+def cubic_taps(grid, height: int, width: int, align_corners: bool):
+    """The kernels' bicubic window: [..., 2] grid -> (cols [N, 4], rows
+    [N, 4], tx [N, 1], ty [N, 1]). The source coordinate is clipped to
+    [-1, size] (exact for torch's border: beyond it every tap clamps and
+    the weights sum to 1), x0 = floor, tx = x - x0; cols x0-1 .. x0+2 and
+    rows y0-1 .. y0+2 are clamped to the plane."""
+    g = grid.reshape(-1, 2)
+    x = torch.clamp(_unnormalize(g[:, 0], width, align_corners),
+                    -1.0, float(width))
+    y = torch.clamp(_unnormalize(g[:, 1], height, align_corners),
+                    -1.0, float(height))
+    x0, y0 = torch.floor(x), torch.floor(y)
+    off = torch.arange(-1, 3, device=g.device)
+    cols = torch.clamp(x0.long()[:, None] + off, 0, width - 1)
+    rows = torch.clamp(y0.long()[:, None] + off, 0, height - 1)
+    return cols, rows, (x - x0)[:, None], (y - y0)[:, None]
+
+
+def _bicubic(plane, grid, align_corners: bool):
+    """Bicubic border-padded sample -> [N, C] f32: the source coordinate
+    is not clipped; the 4x4 tap indices clamp to the plane."""
+    C, H, W = plane.shape
+    g = grid.reshape(-1, 2)
+    x = _unnormalize(g[:, 0], W, align_corners)
+    y = _unnormalize(g[:, 1], H, align_corners)
+    x1, y1 = torch.floor(x), torch.floor(y)
+    tx, ty = (x - x1)[:, None], (y - y1)[:, None]
+    wx = [cubic_weight((i - 1) - tx) for i in range(4)]
+    wy = [cubic_weight((j - 1) - ty) for j in range(4)]
+    x1i, y1i = x1.long(), y1.long()
+    cells = plane.permute(1, 2, 0).reshape(H * W, C).float()
+    out = 0.0
+    for j in range(4):
+        yi = torch.clamp(y1i + (j - 1), 0, H - 1)
+        row = 0.0
+        for i in range(4):
+            xi = torch.clamp(x1i + (i - 1), 0, W - 1)
+            row = row + wx[i] * cells[yi * W + xi]
+        out = out + wy[j] * row
+    return out
+
+
 def grid_sample_2d(plane, grid, align_corners: bool = True,
-                   tap_dtype: Optional[torch.dtype] = None):
-    """Bilinear, border-padded sample of `plane` [C, H, W] at `grid`
-    [..., 2] -> [..., C] f32 (torch grid_sample semantics).
+                   tap_dtype: Optional[torch.dtype] = None,
+                   mode: str = "bilinear"):
+    """Border-padded sample of `plane` [C, H, W] at `grid` [..., 2] ->
+    [..., C] f32 (torch grid_sample semantics); mode 'bilinear' or
+    'bicubic'.
 
     tap_dtype: round the tap values to this dtype first (the JAX
-    `gather_table_dtype`); interpolation weights stay f32."""
+    `gather_table_dtype`; bilinear only); interpolation weights stay
+    f32."""
     C, H, W = plane.shape
     lead = grid.shape[:-1]
+    if mode == "bicubic":
+        if tap_dtype is not None:
+            raise ValueError("tap_dtype applies to bilinear sampling only")
+        return _bicubic(plane, grid, align_corners).reshape(*lead, C)
+    if mode != "bilinear":
+        raise ValueError(f"unknown interpolation mode: {mode}")
     x, y, x0, x1, y0, y1 = _corners(grid, H, W, align_corners)
     tx = (x - torch.floor(x))[:, None]
     ty = (y - torch.floor(y))[:, None]
@@ -63,9 +127,11 @@ def grid_sample_2d(plane, grid, align_corners: bool = True,
 
 
 def multi_plane_sample(planes, grids, align_corners: bool = True,
-                       tap_dtype: Optional[torch.dtype] = None):
+                       tap_dtype: Optional[torch.dtype] = None,
+                       mode: str = "bilinear"):
     """[P, C, H, W] planes at [P, N, 2] grids -> [P, N, C]."""
-    return torch.stack([grid_sample_2d(p, g, align_corners, tap_dtype)
+    return torch.stack([grid_sample_2d(p, g, align_corners, tap_dtype,
+                                       mode)
                         for p, g in zip(planes, grids)])
 
 

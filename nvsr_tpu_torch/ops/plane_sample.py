@@ -1,15 +1,17 @@
-"""Host side of the trainable plane sampler's kernels, and their plain
-versions.
+"""Host side of the plane sampler's kernels, and their plain versions.
 
 Counterpart of nvsr_tpu/ops/pallas/tile_sampler.py
 `tiled_plane_sample_trainable` (:1775-1859), whose forward is
 `tiled_plane_sample_prechunked` (:619-665) over the Pallas `_tile_gather`
 kernel with the chunk descriptors of `_grid_chunk_descriptors`
 (:543-574), and whose backward is the XLA scatter `_trainable_bwd`
-(:1801-1856). The CUDA kernels are csrc/plane_sample.cu (built and bound
-by kernels.py); `plane_sample_reference` and
-`plane_sample_backward_reference` are their plain PyTorch versions with
-the same rounding, used on the CPU and as the kernels' oracles.
+(:1801-1856); and of the bicubic eval sampler
+`tiled_plane_sample_prechunked_bicubic` (:465-540, `_tile_gather` with
+kernel="cubic"), which has no backward. The CUDA kernels are
+csrc/plane_sample.cu (built and bound by kernels.py);
+`plane_sample_reference` and `plane_sample_backward_reference` are their
+plain PyTorch versions with the same rounding, used on the CPU and as
+the kernels' oracles.
 
 What they compute, per plane p and point n (grids [P, N, 2] normalized
 (x, y), bf16 table T = bf16(planes) channel-last [P, H, W, Cp]):
@@ -18,6 +20,11 @@ What they compute, per plane p and point n (grids [P, N, 2] normalized
   * rows top = bf16(w0*T[y0,x0] + w1*T[y0,x1]), bot likewise at y1 (the
     TPU kernel's output rows are bf16);
   * out = top*(1 - ty) + bot*ty in f32 -> [P, N, C];
+  * cubic: the 4x4 window of ops/grid_sample.py::cubic_taps, bf16
+    x-weights wx_i = bf16(cubic(i - tx)), bf16 rows row_j = bf16(sum_i
+    wx_i * T[y0+j, x0+i]) for j = -1..2, and out = sum_j cubic(j - ty) *
+    row_j in f32, left to right (the y-combine of
+    tiled_plane_sample_prechunked_bicubic :535-540);
   * backward: dtop = bf16(dout*(1-ty)), dbot = bf16(dout*ty); the four
     products w0*dtop, w1*dtop, w0*dbot, w1*dbot are added in f32 at the
     four taps -> dplanes [P, C, H, W]. The grids get no gradient.
@@ -39,7 +46,8 @@ import dataclasses
 import torch
 
 from nvsr_tpu_torch.ops.fused_render import build_plane_table
-from nvsr_tpu_torch.ops.grid_sample import _corners
+from nvsr_tpu_torch.ops.grid_sample import (_corners, cubic_taps,
+                                            cubic_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +77,31 @@ def _taps(grids, height: int, width: int, align_corners: bool):
     return cells, _bf16(1.0 - tx), _bf16(tx), ty
 
 
-def plane_sample_reference(table, grids, channels: int,
-                           align_corners: bool) -> torch.Tensor:
-    """Plain version of the forward kernel -> [P, N, channels] f32."""
+def _cubic_reference(table, grids, channels: int, align_corners: bool):
+    p, h, w, cp = table.shape
+    n = grids.shape[1]
+    cols, rows, tx, ty = cubic_taps(grids, h, w, align_corners)
+    base = (torch.arange(p, device=grids.device).repeat_interleave(n)
+            * (h * w))[:, None] + rows * w
+    t = table.reshape(p * h * w, cp)[:, :channels]
+    wx = [_bf16(cubic_weight((i - 1) - tx)) for i in range(4)]
+    out = None
+    for j in range(4):
+        row = None
+        for i in range(4):
+            term = wx[i] * t[base[:, j] + cols[:, i]].float()
+            row = term if row is None else row + term
+        term = cubic_weight((j - 1) - ty) * _bf16(row)
+        out = term if out is None else out + term
+    return out.reshape(p, n, channels)
+
+
+def plane_sample_reference(table, grids, channels: int, align_corners: bool,
+                           cubic: bool = False) -> torch.Tensor:
+    """Plain version of the forward kernels (cubic: the bicubic one) ->
+    [P, N, channels] f32."""
+    if cubic:
+        return _cubic_reference(table, grids, channels, align_corners)
     p, h, w, cp = table.shape
     n = grids.shape[1]
     (c00, c01, c10, c11), w0, w1, ty = _taps(grids, h, w, align_corners)
@@ -99,14 +129,17 @@ def plane_sample_backward_reference(dout, grids, height: int, width: int,
     return acc.reshape(p, height, width, c).permute(0, 3, 1, 2).contiguous()
 
 
-def sample_forward(table, grids, channels: int, align_corners: bool):
+def sample_forward(table, grids, channels: int, align_corners: bool,
+                   cubic: bool = False):
     """A CPU table runs the plain version; any other table goes to the
     kernel, which launches on a CUDA table and raises otherwise."""
     if table.device.type == "cpu":
-        return plane_sample_reference(table, grids, channels, align_corners)
+        return plane_sample_reference(table, grids, channels, align_corners,
+                                      cubic)
     from nvsr_tpu_torch import kernels
     return kernels.plane_sample_forward(table, grids.contiguous(), channels,
-                                        align_corners=align_corners)
+                                        align_corners=align_corners,
+                                        cubic=cubic)
 
 
 def sample_backward(dout, grids, height: int, width: int,

@@ -210,9 +210,14 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
 
     tile_rays: route the pass through a hand-written kernel (the
     counterpart of building the JAX point fn with a TileSamplerConfig of
-    that tile size). For eval, the fused gather+decode kernel
-    (ops/fused_render.py): the plane table and the packed decoder are
-    built HERE, once per point fn. With tile_train, the trainable plane
+    that tile size). For eval, on a config that fused_render.supports
+    (bf16 decoder; bilinear or bicubic planes), the fused gather+decode
+    kernel (ops/fused_render.py); on any other config (e.g. an f32
+    decoder), the eval plane sampler's kernel (ops/plane_sample.py) with
+    the decoder in plain torch, as JAX's tiled eval falls back. The plane
+    table (one channel-last bf16 table serves both routes and both
+    interpolations) and the packed decoder are built HERE, once per
+    point fn. With tile_train, the trainable plane
     sampler (ops/plane_sample.py) with the decoder in plain torch, so
     the pass is differentiable; its table is rebuilt every call, inside
     the autograd boundary, since the planes change every step. Without
@@ -251,12 +256,13 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
         assert noise_generator is None and plane_resolution is None, (
             "tile_rays without tile_train is an eval-only fast path; it "
             "does not support point_coords_noise")
-        # raises ValueError for a config the kernel does not compute
-        packed = fused_render.pack_decoder(params, model_cfg, member)
         table = fused_render.build_plane_table(planes_pos)
-        geom = fused_render.geometry_args(
-            box, rot_mats if rot_mats is not None
-            else make_rot_mats(model_cfg.num_planes))
+        packed = geom = None
+        if fused_render.supports(model_cfg):
+            packed = fused_render.pack_decoder(params, model_cfg, member)
+            geom = fused_render.geometry_args(
+                box, rot_mats if rot_mats is not None
+                else make_rot_mats(model_cfg.num_planes))
         # the box on the planes' device once, not a host copy per block
         box_dev = torch.as_tensor(box, dtype=torch.float32,
                                   device=planes_pos.device)
@@ -269,7 +275,7 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                 sigma_only=sigma_only)
 
         point_fn.consumes_rays = True
-        # ([R, S, 4], {"overflow_frac": 0.0}): the kernel never clamps
+        # ([R, S, 4], {"overflow_frac": 0.0}): the kernels never clamp
         point_fn.has_aux = True
         point_fn.tile_rays = tile_rays
         return point_fn

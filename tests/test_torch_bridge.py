@@ -114,7 +114,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
         sigma_only=True)
     assert out == "kernel" and aux == {"overflow_frac": 0.0}
     assert calls == [{"align_corners": True, "avg": True,
-                      "sigma_only": True}]
+                      "sigma_only": True, "cubic": False}]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -145,7 +145,7 @@ def test_pack_decoder_layout(rng):
 
 def test_supports_gates_unported_configs():
     assert fused_render.supports(port_cfg(FLAGSHIP))
-    for change in ({"compute_dtype": None}, {"plane_interp": "bicubic"},
-                   {"dec_channels": 64}, {"proj_combination": "concat"}):
+    for change in ({"compute_dtype": None}, {"dec_channels": 64},
+                   {"proj_combination": "concat"}):
         assert not fused_render.supports(
             port_cfg(dataclasses.replace(FLAGSHIP, **change)))

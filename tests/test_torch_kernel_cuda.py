@@ -1,4 +1,4 @@
-"""The CUDA triplane kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips unless torch sees a CUDA device (decided in
 the fixture, not at import). The file needs neither JAX nor the reference
@@ -73,11 +73,12 @@ def _inputs(device, layers=4, chans=48, R=300, S=24, res=96, seed=0):
             z.to(device), view, geom)
 
 
+@pytest.mark.parametrize("cubic", [False, True])
 @pytest.mark.parametrize("layers,chans", [(4, 48), (6, 16), (7, 40)])
-def test_kernel_matches_plain(device, layers, chans):
+def test_kernel_matches_plain(device, layers, chans, cubic):
     args = _inputs(device, layers, chans)
     for so in (False, True):
-        kw = dict(align_corners=True, avg=True, sigma_only=so)
+        kw = dict(align_corners=True, avg=True, sigma_only=so, cubic=cubic)
         out = kernels.triplane_render(*args, **kw)
         ref = fused_render.fused_render_reference(*args, **kw)
         torch.cuda.synchronize()
@@ -85,14 +86,17 @@ def test_kernel_matches_plain(device, layers, chans):
         assert err.max() < 2e-2 and err.mean() < 1e-3, (so, err.max())
 
 
-def test_sigma_only_bit_identical_and_counted(device):
+@pytest.mark.parametrize("cubic", [False, True])
+def test_sigma_only_bit_identical_and_counted(device, cubic):
     args = _inputs(device, R=257, S=16, seed=1)
-    mine = (kernels.triplane_render_full, kernels.triplane_render_sigma_only)
+    mine = ((kernels.triplane_render_cubic_full,
+             kernels.triplane_render_cubic_sigma_only) if cubic else
+            (kernels.triplane_render_full, kernels.triplane_render_sigma_only))
     before = [k.launches for k in mine]
     full = kernels.triplane_render(*args, align_corners=False, avg=False,
-                                   sigma_only=False)
+                                   sigma_only=False, cubic=cubic)
     so = kernels.triplane_render(*args, align_corners=False, avg=False,
-                                 sigma_only=True)
+                                 sigma_only=True, cubic=cubic)
     torch.cuda.synchronize()
     assert torch.equal(so[..., 3], full[..., 3])
     assert torch.all(so[..., :3] == args[1].bh[:3])
@@ -116,18 +120,22 @@ def _sampler_inputs(device, P=3, C=48, H=37, W=29, N=5000, seed=0):
     return planes, build_plane_table(planes), grids, dout
 
 
+@pytest.mark.parametrize("cubic", [False, True])
 @pytest.mark.parametrize("align_corners", [True, False])
-def test_plane_sample_fwd_bit_equal(device, align_corners):
+def test_plane_sample_fwd_bit_equal(device, align_corners, cubic):
     from nvsr_tpu_torch.ops import plane_sample as ps
     planes, table, grids, _ = _sampler_inputs(device)
-    before = kernels.plane_sample_fwd.launches
+    kern = kernels.plane_sample_cubic_fwd if cubic else \
+        kernels.plane_sample_fwd
+    before = kern.launches
     out = kernels.plane_sample_forward(table, grids, planes.shape[1],
-                                       align_corners=align_corners)
+                                       align_corners=align_corners,
+                                       cubic=cubic)
     ref = ps.plane_sample_reference(table, grids, planes.shape[1],
-                                    align_corners)
+                                    align_corners, cubic)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
-    assert kernels.plane_sample_fwd.launches == before + 1
+    assert kern.launches == before + 1
 
 
 @pytest.mark.parametrize("align_corners", [True, False])
@@ -160,3 +168,47 @@ def test_plane_sample_autograd_goes_through_kernels(device):
     ref = ps.plane_sample_backward_reference(dout, grids, *planes.shape[2:],
                                              True)
     assert (g - ref).abs().max() < 1e-5
+
+
+# -- no fallback: a failed library load or a device other than the card
+# and the CPU raises; the plain version is never taken
+
+
+def test_failed_library_load_raises(device, monkeypatch):
+    from nvsr_tpu_torch.ops import plane_sample as ps
+
+    def broken(source):
+        raise OSError(f"cannot load the library of {source}")
+
+    def plain(*args, **kw):
+        raise AssertionError("plain version used for a CUDA tensor")
+
+    monkeypatch.setattr(kernels, "_load", broken)
+    for k in kernels.KERNELS:
+        monkeypatch.setattr(k, "_fn", None)
+    monkeypatch.setattr(fused_render, "fused_render_reference", plain)
+    monkeypatch.setattr(ps, "plane_sample_reference", plain)
+    args = _inputs(device, R=8, S=4)
+    before = [k.launches for k in kernels.KERNELS]
+    with pytest.raises(OSError):
+        fused_render.fused_render_rays(*args, align_corners=True, avg=True,
+                                       sigma_only=False, cubic=True)
+    planes, table, grids, _ = _sampler_inputs(device, N=16)
+    with pytest.raises(OSError):
+        ps.sample_forward(table, grids, planes.shape[1], True, cubic=True)
+    assert [k.launches for k in kernels.KERNELS] == before
+
+
+def test_meta_tensors_raise(device):
+    from nvsr_tpu_torch.ops import plane_sample as ps
+    args = [a.to("meta") if torch.is_tensor(a) else a
+            for a in _inputs(device, R=8, S=4)]
+    for cubic in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_render.fused_render_rays(
+                *args, align_corners=True, avg=True, sigma_only=True,
+                cubic=cubic)
+        with pytest.raises(ValueError, match="CUDA"):
+            ps.sample_forward(torch.zeros((3, 4, 4, 16), device="meta"),
+                              torch.zeros((3, 5, 2), device="meta"), 16,
+                              True, cubic=cubic)

@@ -177,8 +177,10 @@ def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
     dout = torch.zeros((3, 5, 16)).as_subclass(FakeCuda)
     grids = torch.zeros((3, 5, 2))
     ps.sample_forward(table, grids, 16, True)
+    ps.sample_forward(table, grids, 16, False, cubic=True)
     ps.sample_backward(dout, grids, 4, 4, False)
-    assert calls == [("fwd", {"align_corners": True}),
+    assert calls == [("fwd", {"align_corners": True, "cubic": False}),
+                     ("fwd", {"align_corners": False, "cubic": True}),
                      ("bwd", {"align_corners": False})]
 
 

@@ -73,3 +73,69 @@ BOX = np.stack([[-2, -2, -2, -np.pi, -np.pi / 2],
 
 def t(x):
     return torch.as_tensor(np.array(x))
+
+
+# -- the 16x16 tiled-render fixture of
+# tests/test_tile_sampler.py::test_bicubic_megakernel_matches_xla
+
+FRAME_BOX = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
+                      [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
+
+
+def frame_decoder(rng, cfg: JaxTriplaneConfig):
+    """np_decoder with a positive density bias, so the frame has content
+    to compare."""
+    tree = np_decoder(rng, cfg)
+    tree["members"][0]["fc_alpha"]["b"][:] = 0.5
+    return tree
+
+
+def frame_scene(rng, cfg: JaxTriplaneConfig, res: int = 64):
+    """Positional planes [3, C, res, res] and a 16^2 view plane."""
+    planes = (0.1 * rng.standard_normal(
+        (3, cfg.num_plane_channels, res, res))).astype(np.float32)
+    view = (0.1 * rng.standard_normal(
+        (cfg.viewdir_channels, 16, 16))).astype(np.float32)
+    return planes, view
+
+
+def tiled_frames(tree_c, tree_f, cfg, planes_c, planes_f, view, port_f=None):
+    """The 16x16 fixture frame through JAX's tiled eval (8x8 tiles of 64
+    rays, TileSamplerConfig(tile_rays=64), Pallas interpret mode,
+    sigma-only coarse) and the port's (tile_rays=64) -> (JAX result, port
+    result); both hold it without clamping. port_f: the port's fine
+    planes, when they differ from JAX's."""
+    import jax
+    import jax.numpy as jnp
+    from nvsr_tpu import render as jrender
+    from nvsr_tpu.ops.geometry import get_ray_bundle as j_get_ray_bundle
+    from nvsr_tpu.ops.pallas.tile_sampler import TileSamplerConfig
+    from nvsr_tpu_torch import render as trender
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 3.5
+    focal = 0.5 * 16 / np.tan(0.3)
+    ro, rd = j_get_ray_bundle(16, 16, focal, jnp.asarray(c2w))
+    tc = TileSamplerConfig(tile_rays=64)
+    mkj = lambda tree, planes, so: jrender.make_triplane_point_fn(
+        jax.tree.map(jnp.asarray, tree), cfg, jnp.asarray(planes),
+        jnp.asarray(view), FRAME_BOX, tile_cfg=tc, sigma_only=so)
+    ref = jrender.render_image(
+        mkj(tree_c, planes_c, True), mkj(tree_f, planes_f, False), ro, rd,
+        jax.random.PRNGKey(1), jrender.RenderConfig(
+            num_coarse=8, num_fine=8, perturb=False, ray_block=256),
+        near=2.0, far=6.0, tile=8)
+    tro, trd = get_ray_bundle(16, 16, focal, t(c2w))
+    mkt = lambda tree, planes, so: trender.make_triplane_point_fn(
+        to_port(tree), port_cfg(cfg), t(planes), t(view), FRAME_BOX,
+        tile_rays=64, sigma_only=so)
+    with torch.no_grad():
+        out = trender.render_image(
+            mkt(tree_c, planes_c, True),
+            mkt(tree_f, planes_f if port_f is None else port_f, False), tro,
+            trd, trender.RenderConfig(num_coarse=8, num_fine=8,
+                                      perturb=False, ray_block=256),
+            near=2.0, far=6.0, tile=8)
+    assert float(ref.aux["overflow_frac"]) == 0.0
+    assert out.aux == {"overflow_frac": 0.0}
+    return ref, out
