@@ -2,7 +2,8 @@
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:  python3 chip_smoke.py  (add --profile to also trace one
-HR/SR and one LR training step with torch.profiler)
+HR/SR and one LR training step, and one frame through each of the points
+and from-rays entries, with torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
@@ -41,7 +42,23 @@ Phases (any failure raises and the script exits non-zero):
      (kernel vs plain >= 45 dB); then the gate scene in bicubic (kernel vs
      plain, the f32 route vs the f32 reference path, the reference path's
      PSNR against JAX's, 39.130 dB on the CPU) and with its own f32
-     bilinear config through the non-fused route.
+     bilinear config through the non-fused route;
+  7. the points entry (apply_triplane_rays(tile_cfg=...), the flagship of
+     phase 3 with seed 3): the four ray entries of triplane_render.cu
+     against output digests pinned from the build before its decoder moved
+     to csrc/decoder.cuh (compared when nvcc is the release they were
+     taken with); the three grids entries against their plain versions at
+     phase 2's pass shapes (v2 coarse sigma-only, v2 and v1 fine), the
+     standalone decoder at the fine pass's tap pairs (its rgb and sigma
+     must equal the v1 entry's bit for bit) and the row gather at
+     gather_dma.py's own workload (beside torch.index_select); then, with
+     launch counts
+     zeroed, SR and the 800x800 frame through a point fn that calls the
+     public points entry, v2 and v1 (each >= 45 dB from the from-rays
+     frame), and the two public ops that no render path calls, as in JAX
+     (fused_decode on the fine pass's tap pairs, gather_rows_dma on its
+     2x2-tap rows of one SR plane); the points-entry and from-rays frames
+     timed, median of 10 each.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
@@ -118,6 +135,20 @@ def table_bytes_read(table, grids, cubic, align_corners=True):
     return cells * cp * table.element_size()
 
 
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def decode_flops(packed, sigma_only):
+    """Multiply-adds (x2) of the decoder for one point."""
+    flops = 0
+    for branch, _, _, k, _ in packed.layers():
+        if branch == "density" or not sigma_only:
+            flops += 2 * k * 128
+    return flops + 2 * 128 * (1 if sigma_only else 4)
+
+
 def render_bound(args, sigma_only, cubic=False):
     """Bound of one triplane_render call: the table cells the points read
     and every other input read once, the output written once; the
@@ -128,18 +159,26 @@ def render_bound(args, sigma_only, cubic=False):
     from nvsr_tpu_torch.ops.fused_render import plane_grids
     table, packed, origins, directions, z, view, geom = args[:7]
     r, s = z.shape
-    ins = [origins, directions, z, packed.w, packed.b, packed.wh,
-           packed.bh] + ([] if sigma_only else [view])
     nbytes = (table_bytes_read(table, plane_grids(origins, directions, z,
                                                   geom), cubic)
-              + sum(t.numel() * t.element_size() for t in ins) + r * s * 16)
-    flops = 0
-    for branch, _, _, k, _ in packed.layers():
-        if branch == "density" or not sigma_only:
-            flops += 2 * k * 128
-    flops += 2 * 128 * (1 if sigma_only else 4)
+              + nbytes_of(origins, directions, z, packed.w, packed.b,
+                          packed.wh, packed.bh,
+                          None if sigma_only else view) + r * s * 16)
     gather = r * s * 3 * packed.cp * (32 if cubic else 10)
-    return bound(nbytes, (flops * r * s, BF16_TC_FLOPS), (gather, F32_FLOPS))
+    return bound(nbytes, (decode_flops(packed, sigma_only) * r * s,
+                          BF16_TC_FLOPS), (gather, F32_FLOPS))
+
+
+def grids_bound(table, packed, grids, view, sigma_only):
+    """Bound of one grids-entry call: as render_bound, with the grids
+    [3, N, 2] and the per-point view rows for inputs."""
+    n = grids.shape[1]
+    nbytes = (table_bytes_read(table, grids, False)
+              + nbytes_of(grids, packed.w, packed.b, packed.wh, packed.bh,
+                          None if sigma_only else view) + n * 16)
+    return bound(nbytes, (decode_flops(packed, sigma_only) * n,
+                          BF16_TC_FLOPS),
+                 (n * 3 * packed.cp * 10, F32_FLOPS))
 
 
 def cuda_ms(fn, warmup=2, reps=10):
@@ -373,30 +412,38 @@ def sampler_checks(dev, planes_pos, grids, dout):
             "bound_by": b_b[1], "library_ms": ms["bwd_lib"]}}
 
 
-def profile_step(step, batch, kind):
-    """One training step (train_step alone) under torch.profiler: its
-    kernels by device time, and device time against the step's wall
-    time (the profiler slows the host, not the device)."""
+# CUDA runtime calls that make the host wait for the device
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def profile_run(label, fn):
+    """fn() once under torch.profiler: its kernels by device time, device
+    time against wall time (the profiler slows the host, not the device),
+    and the host's waits on the device (HOST_WAITS: after each, the host
+    queues no work until the device has drained)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    rays, tgt = batch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(kind, rays, tgt, 20)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     # the device-side events only: an operator's row repeats the device
     # time of the kernels it launched
-    kern = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"[profile] {kind} step: device {dev_ms:.2f} ms in "
+    waits = {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+             if e.key in HOST_WAITS}
+    print(f"[profile] {label}: device {dev_ms:.2f} ms in "
           f"{sum(e.count for e in kern)} kernel launches, wall {wall:.2f} "
-          f"ms under the profiler")
+          f"ms under the profiler (device idle {1 - dev_ms / wall:.1%}); "
+          f"host waits (count, ms) {waits}")
     for e in kern[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
@@ -581,7 +628,8 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
             entries[name]["launches"] = launches[name]
     if profile:
         for kind in ("HR/SR", "LR"):
-            profile_step(step, batch, kind)
+            rays, tgt = batch()
+            profile_run(f"{kind} step", lambda: step(kind, rays, tgt, 20))
     return entries
 
 
@@ -931,6 +979,513 @@ def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True):
     return entries
 
 
+# sha256 of the four ray entries' outputs on the inputs of
+# triplane_digests(), as csrc/triplane_render.cu gave them on the H100
+# before its decoder moved to csrc/decoder.cuh (the build of the parent
+# commit of that move, nvcc 12.9): the move must leave every bit as it
+# was. Another nvcc may schedule the decoder's f32 steps otherwise, so
+# they are compared only under the release they were taken with; a
+# deliberate change of the ray entries' decoder replaces them
+TRIPLANE_DIGESTS_NVCC = "12.9"
+TRIPLANE_DIGESTS = {
+    "triplane_render_full":
+        "2ba2af9de965668a6ac319244010dd64b34e4fa52417bb76c6a9d233672b8f42",
+    "triplane_render_sigma_only":
+        "eebec0223c117e5cc7c9b00d0c995ba167497bb43effac8a0a91903ca99737d5",
+    "triplane_render_cubic_full":
+        "4185a4ae862f5684787b5770c2e510179ac8376f8ee88231c30538bf13031629",
+    "triplane_render_cubic_sigma_only":
+        "db1ddbf8aaf1a6551e243296ce13b9f384c5f1ee3a962f57f7d6ad4a58c2bfa8",
+}
+
+
+def nvcc_release():
+    """The release of the nvcc that builds the kernels, e.g. "12.8"."""
+    import re
+
+    from nvsr_tpu_torch import kernels
+    out = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60).stdout
+    m = re.search(r"release ([0-9.]+)", out)
+    return m.group(1) if m else out.strip()
+
+
+def triplane_digests(dev):
+    """{entry: sha256 of its [R, S, 4] f32 output} for the four ray entries
+    of triplane_render.cu on fixed inputs made on the host from seed 11
+    (4096 rays x 16 depths on 3x48x200^2 planes, the flagship decoder)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig, make_rot_mats
+    from nvsr_tpu_torch.ops import fused_render
+    gen = torch.Generator().manual_seed(11)
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, compute_dtype="bfloat16")
+    packed = fused_render.pack_decoder(random_decoder(gen, cfg, dev), cfg)
+    table = fused_render.build_plane_table(
+        (0.5 * torch.randn((3, 48, 200, 200), generator=gen)).to(dev))
+    r, s = 4096, 16
+    origins = (torch.rand((r, 3), generator=gen) * 2 - 1).to(dev)
+    dirs = torch.randn((r, 3), generator=gen).to(dev)
+    z = torch.sort(torch.rand((r, s), generator=gen) * 3 + 0.5, -1
+                   ).values.to(dev)
+    view = fused_render.view_rows(torch.randn((r, 48), generator=gen).to(dev),
+                                  packed.cvp)
+    box = np.stack([[-2, -2, -2, -np.pi, -np.pi / 2],
+                    [2, 2, 2, np.pi, np.pi / 2]]).astype(np.float32)
+    geom = fused_render.geometry_args(box, make_rot_mats(3))
+    digests = {}
+    for cubic in (False, True):
+        for so in (False, True):
+            name = ("triplane_render_" + ("cubic_" if cubic else "")
+                    + ("sigma_only" if so else "full"))
+            out = kernels.triplane_render(table, packed, origins, dirs, z,
+                                          view, geom, align_corners=True,
+                                          avg=True, sigma_only=so,
+                                          cubic=cubic)
+            digests[name] = hashlib.sha256(
+                out.cpu().numpy().tobytes()).hexdigest()
+    return digests
+
+
+def points_fn(params, cfg, planes, plane_view, box, sigma_only, form="v2",
+              rot_mats=None):
+    """A point fn through the port's public points entry,
+    apply_triplane_rays(tile_cfg=TileSamplerConfig(tile_rays=256)), with
+    the plane table and the packed decoder built once (table=, packed=);
+    form "v1": the TPU v1 kernel's rounding; rot_mats as the entry takes
+    them (None: its default)."""
+    import torch
+    from nvsr_tpu_torch.models.triplane import apply_triplane_rays
+    from nvsr_tpu_torch.ops import fused_render
+    from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
+    tile = TileSamplerConfig(tile_rays=256)
+    table = fused_render.build_plane_table(planes)
+    packed = fused_render.pack_decoder(params, cfg) \
+        if fused_render.supports(cfg) else None
+    box_dev = torch.as_tensor(box, dtype=torch.float32, device=planes.device)
+
+    def point_fn(pts, rays, z_vals):
+        return apply_triplane_rays(params, cfg, planes, plane_view, box_dev,
+                                   pts, rays.viewdirs, tile_cfg=tile,
+                                   table=table, packed=packed,
+                                   sigma_only=sigma_only, form=form,
+                                   rot_mats=rot_mats)
+
+    return point_fn
+
+
+def grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
+                occ, ro, rd):
+    """One RAY_BLOCK block of the flagship passes in the points entry's
+    form: {"coarse": (table, packed, grids [3, N, 2], None) for S=16 on
+    the LR planes, "fine": (..., view rows [N, cvp]) for S=32 on the SR
+    planes}, through the port's public functions (the coarse pass that
+    places the fine depths too)."""
+    import torch
+    from nvsr_tpu_torch.models.triplane import (make_rot_mats,
+                                                sample_viewdir_plane)
+    from nvsr_tpu_torch.ops import fused_render
+    from nvsr_tpu_torch.ops.rendering import volume_render
+    from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
+                                             stratified_z_vals)
+    from nvsr_tpu_torch.render import (make_ray_bundle, tighten_bundle,
+                                       tile_ray_maps)
+    rays = make_ray_bundle(tile_ray_maps(ro, 16), tile_ray_maps(rd, 16),
+                           2.0, 6.0, use_viewdirs=True)
+    rays = tighten_bundle(rays, occ, tile_rays=256)
+    blk = type(rays)(*[f[:RAY_BLOCK] for f in rays])
+    geom = fused_render.geometry_args(box, make_rot_mats(3))
+    z_c = stratified_z_vals(blk.near, blk.far, 16, lindisp=False,
+                            perturb=False)
+    tab_c = fused_render.build_plane_table(planes_lr)
+    tab_f = fused_render.build_plane_table(planes_sr)
+    pk_c = fused_render.pack_decoder(dec_c, cfg)
+    pk_f = fused_render.pack_decoder(dec_f, cfg)
+    rf_c, _ = fused_render.fused_render_rays(
+        tab_c, pk_c, blk.origins, blk.directions, z_c, None, geom,
+        align_corners=True, avg=True, sigma_only=True)
+    z_f = hierarchical_z_vals(
+        z_c, volume_render(rf_c, z_c, blk.directions).weights, 16, det=True)
+    r, s = z_f.shape
+    view = fused_render.view_rows(sample_viewdir_plane(
+        plane_view, blk.viewdirs, box, cfg), pk_f.cvp)
+    view_pts = view[:, None, :].expand(r, s, pk_f.cvp).reshape(
+        r * s, pk_f.cvp).contiguous()
+
+    def grids(z):
+        return torch.stack(fused_render.plane_grids(
+            blk.origins, blk.directions, z, geom)).contiguous()
+
+    return {"coarse": (tab_c, pk_c, grids(z_c), None),
+            "fine": (tab_f, pk_f, grids(z_f), view_pts)}
+
+
+def tap_pair_rows(table, grids, align_corners=True):
+    """The fine pass's input to the standalone decoder, as the TPU tile
+    gather gives it: per plane and point the bf16 x-interpolated rows of
+    the two bilinear taps (top in lanes 0:64, bottom in 64:128) -> rows
+    [3N, 128] bf16, ty [3N] f32 (plane-major)."""
+    import torch
+    from nvsr_tpu_torch.ops.grid_sample import _corners
+    _, h, w, cp = table.shape
+    n = grids.shape[1]
+    rows = torch.zeros((3, n, 128), dtype=torch.bfloat16,
+                       device=table.device)
+    ty = torch.empty((3, n), dtype=torch.float32, device=table.device)
+    for p in range(3):
+        x, y, x0, x1, y0, y1 = _corners(grids[p], h, w, align_corners)
+        tx = (x - torch.floor(x))[:, None]
+        w0 = (1.0 - tx).to(torch.bfloat16).float()
+        w1 = tx.to(torch.bfloat16).float()
+        cells = table[p].reshape(h * w, cp)
+        for half, ya in ((0, y0), (64, y1)):
+            rows[p, :, half:half + cp] = (
+                w0 * cells[ya * w + x0].float()
+                + w1 * cells[ya * w + x1].float()).to(torch.bfloat16)
+        ty[p] = y - torch.floor(y)
+    return rows.reshape(3 * n, 128), ty.reshape(3 * n)
+
+
+def tap_table(plane):
+    """One plane [C, H, W] (C <= 64) -> [H*W, 256] f32 rows of its 2x2
+    bilinear taps, (y, x), (y, x+1), (y+1, x), (y+1, x+1) clamped to the
+    border, 64 channels each (the packed-tap table of JAX's
+    packed_bilinear_sample, whose row gather gather_dma.py measured)."""
+    import torch
+    c, h, w = plane.shape
+    p = torch.zeros((64, h, w), dtype=torch.float32, device=plane.device)
+    p[:c] = plane
+    xs = torch.clamp(torch.arange(w, device=plane.device) + 1, max=w - 1)
+    ys = torch.clamp(torch.arange(h, device=plane.device) + 1, max=h - 1)
+    taps = [p, p[:, :, xs], p[:, ys, :], p[:, ys][:, :, xs]]
+    return torch.cat(taps, dim=0).permute(1, 2, 0).reshape(
+        h * w, 256).contiguous()
+
+
+def grids_checks(blk):
+    """The three grids entries against their plain versions at the block's
+    pass shapes, timed with CUDA events -> (kernel entries, the v1 fine
+    output, its ms)."""
+    import torch
+    from nvsr_tpu_torch.ops import fused_render
+    entries, v1 = {}, None
+    for name, (tab, pk, grids, view), so, form in (
+            ("triplane_render_grids_sigma_only", blk["coarse"], True, "v2"),
+            ("triplane_render_grids_full", blk["fine"], False, "v2"),
+            ("triplane_render_grids_v1", blk["fine"], False, "v1")):
+        kw = dict(align_corners=True, avg=True, sigma_only=so, form=form)
+        out, _ = fused_render.tiled_render_chunked(tab, pk, grids, view, **kw)
+        ref = fused_render.tiled_render_chunked_reference(tab, pk, grids,
+                                                          view, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite kernel output")
+        err = (out - ref).abs()
+        ms = cuda_ms(lambda: fused_render.tiled_render_chunked(
+            tab, pk, grids, view, **kw))
+        plain_ms = cuda_ms(lambda: fused_render.tiled_render_chunked_reference(
+            tab, pk, grids, view, **kw), warmup=1, reps=3)
+        b_ms, b_by = grids_bound(tab, pk, grids, view, so)
+        print(f"[points] {name} (N={grids.shape[1]} on {tab.shape[1]}^2): "
+              f"max err {err.max().item():.3e} mean {err.mean().item():.3e} "
+              f"(tol max {MAX_ABS_TOL}, mean {MEAN_ABS_TOL}); kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"by {b_by} ({b_ms / ms:.1%})")
+        if not (err.max() <= MAX_ABS_TOL and err.mean() <= MEAN_ABS_TOL):
+            fail(f"{name} disagrees with its plain version")
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "nvsr_tpu_torch/csrc/triplane_render.cu",
+            "replaces": "nvsr_tpu/ops/pallas/tile_sampler.py:"
+                        + ("794" if form == "v1" else "904"),
+            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if form == "v1":
+            v1 = (out, ms)
+    return entries, v1
+
+
+def decoder_inputs(fine):
+    """(rows, ty, view [N, 64] f32, packed) of the fine pass for the
+    standalone decoder."""
+    import torch
+    tab, pk, grids, view = fine
+    rows, ty = tap_pair_rows(tab, grids)
+    view32 = torch.zeros((view.shape[0], 64), dtype=torch.float32,
+                         device=view.device)
+    view32[:, :pk.cvp] = view.float()
+    return rows, ty, view32, pk
+
+
+def decoder_check(fine, v1):
+    """fused_decode against its plain version at the fine pass's point
+    count, its result beside the v1 grids entry's (the same features and
+    decoder), timed -> its kernel entry."""
+    import torch
+    from nvsr_tpu_torch.ops import fused_decoder
+    rows, ty, view32, pk = decoder_inputs(fine)
+    n = view32.shape[0]
+    out = fused_decoder.fused_decode(rows, ty, view32, pk, avg=True)
+    ref = fused_decoder.fused_decode_reference(rows, ty, view32, pk,
+                                               avg=True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("fused_decode: non-finite kernel output")
+    err = (out - ref).abs()
+    same = torch.equal(out[:, :4], v1[0])
+    ms = cuda_ms(lambda: fused_decoder.fused_decode(rows, ty, view32, pk,
+                                                    avg=True))
+    plain_ms = cuda_ms(lambda: fused_decoder.fused_decode_reference(
+        rows, ty, view32, pk, avg=True), warmup=1, reps=3)
+    # bytes: what the kernel reads, once: per plane and point the first cp
+    # channels of each tap half and ty, per point cvp view lanes (the pad
+    # lanes cannot count), the weights; the output once. Operations: the
+    # decoder; per point, plane and channel the lerp's 2 products, 1
+    # difference, 1 sum and the comb sum
+    b_ms, b_by = bound(3 * n * (2 * pk.cp * rows.element_size()
+                                + ty.element_size())
+                       + n * pk.cvp * view32.element_size()
+                       + nbytes_of(pk.w, pk.b, pk.wh, pk.bh, out),
+                       (decode_flops(pk, False) * n, BF16_TC_FLOPS),
+                       (n * 3 * pk.cp * 5, F32_FLOPS))
+    print(f"[points] fused_decode (N={n}): max err {err.max().item():.3e} "
+          f"mean {err.mean().item():.3e} (tol max {MAX_ABS_TOL}, mean "
+          f"{MEAN_ABS_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}); rgb and sigma "
+          f"bit-identical to the v1 grids entry on the same tap pairs: "
+          f"{'yes' if same else 'no'}; the v1 entry (gather + decode) "
+          f"{v1[1]:.3f} ms")
+    if not (err.max() <= MAX_ABS_TOL and err.mean() <= MEAN_ABS_TOL):
+        fail("fused_decode disagrees with its plain version")
+    if not same:
+        fail("fused_decode on the v1 grids entry's tap pairs differs from "
+             "that entry's rgb and sigma")
+    return {"fused_decode": {
+        "name": "fused_decode", "route": "cuda",
+        "source": "nvsr_tpu_torch/csrc/fused_decode.cu",
+        "replaces": "nvsr_tpu/ops/pallas/fused_decoder.py:220",
+        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}}
+
+
+# gather_dma.py's own workload (its docstring): 524,288 rows of 256 f32
+# from a 655,360-row table
+GATHER_ROWS, GATHER_TABLE_ROWS, GATHER_WIDTH = 524288, 655360, 256
+
+
+def gather_check(dev):
+    """gather_rows_dma against its plain version (bit-equal) at
+    gather_dma.py's own workload, timed beside torch.index_select -> its
+    kernel entry."""
+    import torch
+    from nvsr_tpu_torch.ops import gather_dma
+    gen = torch.Generator(device=dev).manual_seed(12)
+    table = torch.randn((GATHER_TABLE_ROWS, GATHER_WIDTH), generator=gen,
+                        device=dev)
+    idx = torch.randint(0, GATHER_TABLE_ROWS, (GATHER_ROWS,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    out = gather_dma.gather_rows_dma(table, idx)
+    ref = gather_dma.gather_rows_reference(table, idx)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    # the public op, as a caller pays it
+    ms = cuda_ms(lambda: gather_dma.gather_rows_dma(table, idx), warmup=3,
+                 reps=20)
+    plain_ms = cuda_ms(lambda: gather_dma.gather_rows_reference(table, idx),
+                       warmup=3, reps=20)
+    lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx), warmup=3,
+                     reps=20)
+    # bytes: each distinct table row the indices name, read once; the
+    # indices and the output once
+    b_ms, b_by = bound(torch.unique(idx).numel() * GATHER_WIDTH
+                       * table.element_size() + nbytes_of(idx, out),
+                       (0, F32_FLOPS))
+    print(f"[points] gather_rows_dma ({GATHER_ROWS} rows of {GATHER_WIDTH} "
+          f"f32 from {GATHER_TABLE_ROWS}): bit-equal to its plain version: "
+          f"{'yes' if torch.equal(out, ref) else 'no'}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%})")
+    if not torch.equal(out, ref):
+        fail("gather_rows_dma disagrees with its plain version")
+    return {"gather_rows_dma": {
+        "name": "gather_rows_dma", "route": "cuda",
+        "source": "nvsr_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "nvsr_tpu/ops/pallas/gather_dma.py:29",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}}
+
+
+def points_phase(dev, c2w, w=EVAL_FULL, on_card=True, profile=False):
+    """Phase 7 (see the module docstring). With on_card=False (a CPU
+    rehearsal at a small `w`) the kernel checks, launch counts and timings
+    are skipped and every pass runs the plain versions. profile: after the
+    timed frames, one frame through each entry under torch.profiler."""
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig, make_rot_mats
+    from nvsr_tpu_torch.ops import fused_decoder, gather_dma
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    from nvsr_tpu_torch.ops.grid_sample import _corners
+    from nvsr_tpu_torch.render import RenderConfig, render_image
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c, res, vr = w["channels"], w["res"], w["view_res"]
+    gen = torch.Generator().manual_seed(3)
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, num_plane_channels=c,
+                         gather_table_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    sr_cfg = PlaneSRConfig(in_channels=c, out_channels=c,
+                           hidden_size=w["sr_hidden"],
+                           n_blocks=w["sr_blocks"],
+                           scale_factor=w["sr_scale"],
+                           compute_dtype="bfloat16")
+    dec_c = random_decoder(gen, cfg, dev)
+    dec_f = random_decoder(gen, cfg, dev)
+    for dec in (dec_c, dec_f):
+        dec["members"][0]["fc_alpha"]["b"].fill_(1.0)
+    sr_params = random_edsr(gen, sr_cfg, dev)
+    planes_lr = (0.03 * torch.randn((3, c, res, res), generator=gen)).to(dev)
+    plane_view = (0.03 * torch.randn((c, vr, vr), generator=gen)).to(dev)
+    box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
+                    [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    img = w["image"]
+    ro, rd = get_ray_bundle(img, img, 0.5 * img / np.tan(0.3),
+                            torch.as_tensor(c2w, device=dev))
+    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
+                        ray_block=RAY_BLOCK)
+
+    def frame(make_fn, planes_sr, **kw):
+        return render_image(
+            make_fn(dec_c, cfg, planes_lr, plane_view, box, True, **kw),
+            make_fn(dec_f, cfg, planes_sr, plane_view, box, False, **kw),
+            ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
+            tile=16).fine.rgb
+
+    entries = {}
+    with torch.no_grad():
+        if on_card:
+            digests, rel = triplane_digests(dev), nvcc_release()
+            if rel != TRIPLANE_DIGESTS_NVCC:
+                print(f"[points] ray-entry digests pinned under nvcc "
+                      f"{TRIPLANE_DIGESTS_NVCC}, this build's is {rel}: not "
+                      f"compared; {digests}")
+            else:
+                same = {k: digests[k] == TRIPLANE_DIGESTS[k]
+                        for k in digests}
+                print(f"[points] the four ray entries' outputs as before the "
+                      f"decoder moved to decoder.cuh (pinned digests, nvcc "
+                      f"{rel}): {same}")
+                if not all(same.values()):
+                    fail(f"the decoder move changed a ray entry: {digests}")
+            planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
+            blk = grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr,
+                              plane_view, box, occ, ro, rd)
+            entries, v1 = grids_checks(blk)
+            entries.update(decoder_check(blk["fine"], v1))
+            del blk, v1
+            entries.update(gather_check(dev))
+
+        # the points entry once: SR, the frame through the public points
+        # entry (v2, then v1), and the two public ops that no render path
+        # calls, on the fine pass's data
+        mine = (kernels.triplane_render_grids_full,
+                kernels.triplane_render_grids_sigma_only,
+                kernels.triplane_render_grids_v1, kernels.fused_decode,
+                kernels.gather_rows)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
+        rgb = frame(points_fn, planes_sr)
+        rgb_v1 = frame(points_fn, planes_sr, form="v1")
+        fine = grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr,
+                           plane_view, box, occ, ro, rd)["fine"]
+        dec_in = decoder_inputs(fine)
+        dec = fused_decoder.fused_decode(*dec_in, avg=True)
+        taps = tap_table(planes_sr[0])
+        h, w_ = planes_sr.shape[-2:]
+        n = fine[2].shape[1] // gather_dma.BLOCK * gather_dma.BLOCK
+        _, _, x0, _, y0, _ = _corners(fine[2][0, :n], h, w_, True)
+        cells = (y0 * w_ + x0).to(torch.int32)
+        got = gather_dma.gather_rows_dma(taps, cells)
+        sync()
+        main_s = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in mine}
+        print(f"[points] SR + {img}x{img} frame through the points entry, "
+              f"v2 and v1, + fused_decode ({dec.shape[0]} points) + "
+              f"gather_rows_dma ({n} rows) in {main_s:.3f} s (first run); "
+              f"launches {launches}")
+        for name, x in (("v2", rgb), ("v1", rgb_v1)):
+            if tuple(x.shape) != (img, img, 3) or not torch.isfinite(x).all():
+                fail(f"points-entry {name} frame: shape {tuple(x.shape)} or "
+                     f"non-finite")
+        e_dec = (dec - fused_decoder.fused_decode_reference(
+            *dec_in, avg=True)).abs()
+        if not (e_dec.max() <= MAX_ABS_TOL and e_dec.mean() <= MEAN_ABS_TOL):
+            fail("fused_decode on the fine pass disagrees with its plain "
+                 "version")
+        if not torch.equal(got, gather_dma.gather_rows_reference(taps,
+                                                                 cells)):
+            fail("gather_rows_dma on the fine pass disagrees with its "
+                 "plain version")
+        rays_rgb = frame(tiled_fn, planes_sr)
+        p_v2, p_v1 = psnr(rgb, rays_rgb), psnr(rgb_v1, rays_rgb)
+        print(f"[points] frame through the points entry vs the from-rays "
+              f"entry: v2 {p_v2:.2f} dB, v1 {p_v1:.2f} dB (min "
+              f"{GATE_PSNR_MIN_DB}); fused_decode max err "
+              f"{e_dec.max().item():.3e}, gather_rows_dma bit-equal")
+        if min(p_v2, p_v1) < GATE_PSNR_MIN_DB:
+            fail("the points-entry frame disagrees with the from-rays frame")
+        if on_card:
+            if min(launches.values()) == 0:
+                fail(f"a kernel of the points path was never launched: "
+                     f"{launches}")
+            for name in entries:
+                entries[name]["launches"] = launches[
+                    "gather_rows" if name == "gather_rows_dma" else name]
+
+            def fns(make, **kw):
+                return (make(dec_c, cfg, planes_lr, plane_view, box, True,
+                             **kw),
+                        make(dec_f, cfg, planes_sr, plane_view, box, False,
+                             **kw))
+
+            def timed(pf):
+                return render_image(*pf, ro, rd, rcfg, near=2.0, far=6.0,
+                                    occ_aabb=occ, tile=16).fine.rgb
+
+            runs = [("the points entry", fns(points_fn)),
+                    ("the from-rays entry", fns(tiled_fn))]
+            if profile:
+                # and the points entry given numpy rotation matrices,
+                # which it copies to the card on every call
+                runs.append(("the points entry, numpy rot_mats",
+                             fns(points_fn, rot_mats=make_rot_mats(3))))
+            for name, pf in runs:
+                ts = frame_ms(lambda: timed(pf), reps=w["reps"])
+                med = ts[len(ts) // 2]
+                print(f"[points] frame through {name}: median of {len(ts)} "
+                      f"{med:.2f} ms (min {ts[0]:.2f}, max {ts[-1]:.2f}) = "
+                      f"{img * img / med * 1e3:.0f} rays/s")
+            for name, pf in runs if profile else ():
+                profile_run(f"frame through {name}", lambda: timed(pf))
+    return entries
+
+
 def main(profile=False):
     import numpy as np
     import torch
@@ -1076,17 +1631,24 @@ def main(profile=False):
     # -- 6. bicubic planes ------------------------------------------------
     entries.update(bicubic_phase(dev, camera([3.8, 0.5, 0.7])))
 
+    # -- 7. the points entry ----------------------------------------------
+    entries.update(points_phase(dev, camera([3.8, 0.5, 0.7]),
+                                profile=profile))
+
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (
         "triplane_render_sigma_only", "triplane_render_full",
         "plane_sample_fwd", "plane_sample_bwd",
         "triplane_render_cubic_sigma_only", "triplane_render_cubic_full",
-        "plane_sample_cubic_fwd")]}))
+        "plane_sample_cubic_fwd", "triplane_render_grids_sigma_only",
+        "triplane_render_grids_full", "triplane_render_grids_v1",
+        "fused_decode", "gather_rows_dma")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    # --profile: also profile one HR/SR and one LR training step
+    # --profile: also profile one HR/SR and one LR training step, and one
+    # frame through each of the points and from-rays entries
     main(profile="--profile" in sys.argv[1:])

@@ -28,6 +28,19 @@
 // the order y0, y0+1, y0-1, y0+2 (the TPU kernel's A rows, then its B
 // rows). Comb and decoder as above.
 //
+// The grids entries (kGrids; the counterpart of the TPU grids entry
+// tiled_render_chunked, tile_sampler.py:1464, whose launcher _mega_finish
+// :1510 takes _mega_kernel_v2 or, under NVSR_MEGA_V1=1, _mega_kernel
+// :794) are bilinear only. They read each point's three normalized (x, y)
+// from grids [3, N, 2] f32 instead of building them from o + d*z, take a
+// bf16 view row per point [N, cvp], and write out[n] for the N points in
+// their input order: the kernel works point by point, so the TPU's chunk
+// order has no counterpart. They run with R = N, S = 1 (one "ray" per
+// point). kV1 is _mega_kernel's own rounding (tile_sampler.py:845-847,
+// 869-870; fused_decoder.py:213-217): the two x-interpolated rows are
+// rounded to bf16 and the y-lerp is top * (1 - ty) + bot * ty in f32; it
+// always decodes in full, as the TPU v1 kernel ignores sigma_only.
+//
 // All f32 steps before the decoder use _rn intrinsics so that no FMA
 // contraction changes them: the features equal the plain version's bit
 // for bit.
@@ -52,34 +65,25 @@
 //            x 4; bicubic 48, row by row) as 16-byte vectors and writes f0,
 //            f1, f2 and comb (bf16) to shared memory, plus the ray's view
 //            row;
-//   phase 2: layer by layer, the layer's bf16 weight block is staged into
-//            shared memory and each warp multiplies its 16 points with
-//            nvcuda::wmma (bf16, f32 accumulate), adds the bias, applies
-//            relu and stores bf16 back in place.
+//   phase 2: the decoder of decoder.cuh: layer by layer, the layer's bf16
+//            weight block is staged into shared memory and each warp
+//            multiplies its 16 points with nvcuda::wmma (bf16, f32
+//            accumulate), adds the bias, applies relu and stores bf16 back
+//            in place.
 // Weights are re-read from L2 by every block; wgmma, TMA, persistence and
 // keeping weights resident are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "decoder.cuh"
 #include "sampling.cuh"
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kPoints = 64;                 // points per block
-constexpr int kWarps = kPoints / 16;        // each warp owns 16 points
-constexpr int kThreads = kWarps * 32;
-constexpr int kWidth = 128;                 // decoder width
-constexpr int kLdAct = kWidth + 8;          // padded strides spread banks
-constexpr int kLdW = kWidth + 8;
-constexpr int kHeadCols = 16;               // rgb cols 0:3, sigma col 3
-constexpr int kLdHead = kHeadCols + 8;
+using namespace nvsr;
 
 struct Geom {
   float lo[3], hi[3];
@@ -89,35 +93,13 @@ struct Geom {
 struct Params {
   const bf16* table; int H, W, cp;
   const float* origins; const float* dirs; const float* z; int R, S;
+  const float* grids;                       // [3, R, 2]: the grids entries
   const bf16* view; int cvp;
-  const bf16* w; const float* b; const bf16* wh; const float* bh;
-  int n_density, n_rgb, skip_every;
+  Decoder dec;
   int align_corners, avg;
   float* out;
   Geom geom;
 };
-
-// byte offsets into dynamic shared memory
-struct Layout {
-  int ldf, ldv;
-  unsigned hd, hr, feat, fv, wbuf, stage, taps, wts, total;
-};
-
-__host__ __device__ inline unsigned align128(unsigned x) {
-  return (x + 127u) & ~127u;
-}
-
-__host__ __device__ inline bool is_skip(int every, int layer_num) {
-  return every > 0 && layer_num > 0 && layer_num % every == 0;
-}
-
-// rows of layer ln's weight block: its input parts, in packing order
-__host__ __device__ inline int layer_rows(bool rgb, int ln, int every,
-                                          int cp, int cvp) {
-  int first = rgb ? 3 * cp + cvp : cp;
-  if (ln == 0) return first;
-  return is_skip(every, ln - 1) ? kWidth + first : kWidth;
-}
 
 // per (point, plane) in shared memory: tap offsets and weights
 template <bool kCubic> struct TapShape {
@@ -125,86 +107,18 @@ template <bool kCubic> struct TapShape {
   static constexpr int kFloats = kCubic ? 16 : 3;  // cubic: w[row][col]
 };
 
-Layout make_layout(int cp, int cvp, int max_rows, int tap_ints,
-                   int tap_floats) {
-  Layout L;
-  L.ldf = cp + 8;
-  L.ldv = cvp + 8;
-  unsigned off = 0;
-  L.hd = off;    off = align128(off + kPoints * kLdAct * 2);
-  L.hr = off;    off = align128(off + kPoints * kLdAct * 2);
-  L.feat = off;  off = align128(off + 4 * kPoints * L.ldf * 2);
-  L.fv = off;    off = align128(off + kPoints * L.ldv * 2);
-  unsigned wbytes = (unsigned)max_rows * kLdW * 2;
-  unsigned hbytes = 2 * kWidth * kLdHead * 2;
-  L.wbuf = off;  off = align128(off + (wbytes > hbytes ? wbytes : hbytes));
-  L.stage = off; off = align128(off + kWarps * 2 * 256 * 4);
-  L.taps = off;  off = align128(off + kPoints * 3 * tap_ints * 4);
-  L.wts = off;   off = align128(off + kPoints * 3 * tap_floats * 4);
-  L.total = off;
-  return L;
-}
-
-struct Part { const bf16* ptr; int ld; int width; };
-
-// global [rows, cols] bf16 (row-major, contiguous) -> shared, stride ldd
-__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src,
-                                  int rows, int cols) {
-  const int vecs = cols / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * cols + c));
-  }
-}
-
-// out[warp rows, 0:128] = bf16(relu(concat(parts) @ wbuf + bias)); a warp
-// reads and writes only its own 16 rows, so `out` may be an input part.
-__device__ inline void mma_layer(const Part* parts, int nparts,
-                                 const bf16* wbuf, const float* bias,
-                                 bf16* out, float* stage, int warp,
-                                 int lane) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  int kb = 0;
-  for (int p = 0; p < nparts; ++p) {
-    const bf16* a_base = parts[p].ptr + warp * 16 * parts[p].ld;
-    for (int k = 0; k < parts[p].width; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_base + k, parts[p].ld);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, wbuf + (kb + k) * kLdW + j * 16, kLdW);
-        wmma::mma_sync(acc[j], a, bw, acc[j]);
-      }
-    }
-    kb += parts[p].width;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const float v = __fadd_rn(stage[e], bias[j * 16 + c]);
-      out[(warp * 16 + r) * kLdAct + j * 16 + c] =
-          __float2bfloat16_rn(fmaxf(v, 0.0f));
-    }
-    __syncwarp();
-  }
-}
-
 // offset from y0 of the r-th bicubic window row in feature-sum order:
 // y0, y0+1, y0-1, y0+2
 __device__ inline int cubic_row(int r) {
   return r == 2 ? -1 : (r == 3 ? 2 : r);
 }
 
-template <bool kSigmaOnly, bool kCubic>
+template <bool kSigmaOnly, bool kCubic, bool kGrids, bool kV1>
 __global__ void __launch_bounds__(kThreads)
 triplane_render_kernel(const Params P, const Layout L) {
+  static_assert(!(kGrids && kCubic), "the grids entries are bilinear");
+  static_assert(!kV1 || (kGrids && !kSigmaOnly),
+                "v1 is a full-decode grids entry");
   constexpr int kInts = TapShape<kCubic>::kInts;
   constexpr int kFloats = TapShape<kCubic>::kFloats;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -232,25 +146,32 @@ triplane_render_kernel(const Params P, const Layout L) {
     for (int k = 0; k < kInts; ++k) t[k] = 0;
     for (int k = 0; k < kFloats; ++k) wv[k] = 0.0f;
     if (n < N) {
-      const long long r = n / P.S;
-      const float zz = P.z[n];
-      float nc[3];
+      float gx, gy;
+      if (kGrids) {
+        const float2 g = reinterpret_cast<const float2*>(P.grids)[pl * N + n];
+        gx = g.x;
+        gy = g.y;
+      } else {
+        const long long r = n / P.S;
+        const float zz = P.z[n];
+        float nc[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float pc = __fadd_rn(P.origins[r * 3 + c],
-                                   __fmul_rn(P.dirs[r * 3 + c], zz));
-        nc[c] = __fsub_rn(
-            __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(pc, P.geom.lo[c])),
-                      __fsub_rn(P.geom.hi[c], P.geom.lo[c])),
-            1.0f);
+        for (int c = 0; c < 3; ++c) {
+          const float pc = __fadd_rn(P.origins[r * 3 + c],
+                                     __fmul_rn(P.dirs[r * 3 + c], zz));
+          nc[c] = __fsub_rn(
+              __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(pc, P.geom.lo[c])),
+                        __fsub_rn(P.geom.hi[c], P.geom.lo[c])),
+              1.0f);
+        }
+        const float (*rot)[2] = P.geom.rot[pl];
+        gx = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][0]),
+                                 __fmul_rn(nc[1], rot[1][0])),
+                       __fmul_rn(nc[2], rot[2][0]));
+        gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
+                                 __fmul_rn(nc[1], rot[1][1])),
+                       __fmul_rn(nc[2], rot[2][1]));
       }
-      const float (*rot)[2] = P.geom.rot[pl];
-      const float gx = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][0]),
-                                           __fmul_rn(nc[1], rot[1][0])),
-                                 __fmul_rn(nc[2], rot[2][0]));
-      const float gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
-                                           __fmul_rn(nc[1], rot[1][1])),
-                                 __fmul_rn(nc[2], rot[2][1]));
       if (kCubic) {
         // t[0:4] = row starts (cells) in cubic_row order, t[4:8] = cols
         // x0-1 .. x0+2; wv[r * 4 + c] = bf16(wx_c * wy_r)
@@ -328,13 +249,20 @@ triplane_render_kernel(const Params P, const Layout L) {
         const bf16* v = reinterpret_cast<const bf16*>(q);  // v[k * 8 + e]
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const float top =
+          float top =
               __fadd_rn(__fmul_rn(w0, __bfloat162float(v[e])),
                         __fmul_rn(w1, __bfloat162float(v[8 + e])));
-          const float bot =
+          float bot =
               __fadd_rn(__fmul_rn(w0, __bfloat162float(v[16 + e])),
                         __fmul_rn(w1, __bfloat162float(v[24 + e])));
-          f[e] = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
+          if (kV1) {
+            top = bf16r(top);
+            bot = bf16r(bot);
+            f[e] = __fadd_rn(__fmul_rn(top, __fsub_rn(1.0f, ty)),
+                             __fmul_rn(bot, ty));
+          } else {
+            f[e] = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
+          }
         }
       }
       __align__(16) bf16 fo[8];
@@ -367,97 +295,33 @@ triplane_render_kernel(const Params P, const Layout L) {
   }
   __syncthreads();
 
-  // phase 2: the decoder, layer by layer
+  // phase 2: the decoder
   const Part f0 = {feat, ldf, cp}, f1 = {feat + kPoints * ldf, ldf, cp},
              f2 = {feat + 2 * kPoints * ldf, ldf, cp},
              comb = {feat + 3 * kPoints * ldf, ldf, cp},
              view = {fv, L.ldv, P.cvp};
-  const bf16* wl = P.w;
-  int li = 0;
-  Part parts[5];
-  for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
-    const bool rgb = br == 1;
-    bf16* x = rgb ? hr : hd;
-    const int nl = rgb ? P.n_rgb : P.n_density;
-    for (int ln = 0; ln < nl; ++ln) {
-      int np = 0;
-      if (ln > 0) parts[np++] = Part{x, kLdAct, kWidth};
-      if (ln == 0 || is_skip(P.skip_every, ln - 1)) {
-        if (rgb) {
-          parts[np++] = f0; parts[np++] = f1; parts[np++] = f2;
-          parts[np++] = view;
-        } else {
-          parts[np++] = comb;
-        }
-      }
-      const int rows = layer_rows(rgb, ln, P.skip_every, cp, P.cvp);
-      stage_rows(wbuf, kLdW, wl, rows, kWidth);
-      __syncthreads();
-      mma_layer(parts, np, wbuf, P.b + li * kWidth, x, stage, warp, lane);
-      __syncthreads();
-      wl += (size_t)rows * kWidth;
-      ++li;
-    }
-  }
-
-  // heads: rows [0, 128) of the staged block are fc_rgb, [128, 256) fc_alpha
-  stage_rows(wbuf, kLdHead, P.wh, 2 * kWidth, kHeadCols);
-  __syncthreads();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_r;
-  wmma::fill_fragment(acc_s, 0.0f);
-  wmma::fill_fragment(acc_r, 0.0f);
-#pragma unroll
-  for (int k = 0; k < kWidth; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-    wmma::load_matrix_sync(a, hd + warp * 16 * kLdAct + k, kLdAct);
-    wmma::load_matrix_sync(bw, wbuf + (kWidth + k) * kLdHead, kLdHead);
-    wmma::mma_sync(acc_s, a, bw, acc_s);
-    if (!kSigmaOnly) {
-      wmma::load_matrix_sync(a, hr + warp * 16 * kLdAct + k, kLdAct);
-      wmma::load_matrix_sync(bw, wbuf + k * kLdHead, kLdHead);
-      wmma::mma_sync(acc_r, a, bw, acc_r);
-    }
-  }
-  wmma::store_matrix_sync(stage, acc_s, 16, wmma::mem_row_major);
-  wmma::store_matrix_sync(stage + 256, acc_r, 16, wmma::mem_row_major);
-  __syncwarp();
+  const float4 o = decode<kSigmaOnly>(P.dec, f0, f1, f2, comb, view, hd, hr,
+                                      wbuf, stage, cp, P.cvp, warp, lane);
   if (lane < 16) {
     const long long n = base + warp * 16 + lane;
-    if (n < N) {
-      const float* s = stage + lane * 16;
-      const float* r = stage + 256 + lane * 16;
-      float4 o;
-      o.x = kSigmaOnly ? P.bh[0] : __fadd_rn(r[0], P.bh[0]);
-      o.y = kSigmaOnly ? P.bh[1] : __fadd_rn(r[1], P.bh[1]);
-      o.z = kSigmaOnly ? P.bh[2] : __fadd_rn(r[2], P.bh[2]);
-      o.w = __fadd_rn(s[3], P.bh[3]);
-      *reinterpret_cast<float4*>(P.out + n * 4) = o;
-    }
+    if (n < N) *reinterpret_cast<float4*>(P.out + n * 4) = o;
   }
 }
 
-template <bool kSigmaOnly, bool kCubic>
+template <bool kSigmaOnly, bool kCubic, bool kGrids = false, bool kV1 = false>
 int launch(const Params& p, cudaStream_t stream) {
-  int max_rows = 0;
-  for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
-    const int nl = br ? p.n_rgb : p.n_density;
-    for (int ln = 0; ln < nl; ++ln) {
-      const int rows = layer_rows(br == 1, ln, p.skip_every, p.cp, p.cvp);
-      if (rows > max_rows) max_rows = rows;
-    }
-  }
+  const int max_rows = max_layer_rows(p.dec, kSigmaOnly, p.cp, p.cvp);
   const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp, max_rows,
                                TapShape<kCubic>::kInts,
                                TapShape<kCubic>::kFloats);
   cudaError_t err = cudaFuncSetAttribute(
-      triplane_render_kernel<kSigmaOnly, kCubic>,
+      triplane_render_kernel<kSigmaOnly, kCubic, kGrids, kV1>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)p.R * p.S;
   const long long blocks = (n + kPoints - 1) / kPoints;
   if (blocks > 0)
-    triplane_render_kernel<kSigmaOnly, kCubic>
+    triplane_render_kernel<kSigmaOnly, kCubic, kGrids, kV1>
         <<<(unsigned)blocks, kThreads, L.total, stream>>>(p, L);
   return (int)cudaGetLastError();
 }
@@ -472,12 +336,17 @@ Params make_params(const void* table, int H, int W, int cp,
   Params p;
   p.table = static_cast<const bf16*>(table); p.H = H; p.W = W; p.cp = cp;
   p.origins = origins; p.dirs = dirs; p.z = z; p.R = R; p.S = S;
+  p.grids = nullptr;
   p.view = static_cast<const bf16*>(view); p.cvp = cvp;
-  p.w = static_cast<const bf16*>(w); p.b = b;
-  p.wh = static_cast<const bf16*>(wh); p.bh = bh;
-  p.n_density = n_density; p.n_rgb = n_rgb; p.skip_every = skip_every;
+  p.dec.w = static_cast<const bf16*>(w); p.dec.b = b;
+  p.dec.wh = static_cast<const bf16*>(wh); p.dec.bh = bh;
+  p.dec.n_density = n_density; p.dec.n_rgb = n_rgb;
+  p.dec.skip_every = skip_every;
   p.align_corners = align_corners; p.avg = avg; p.out = out;
-  memcpy(&p.geom, geom_host, sizeof(Geom));
+  if (geom_host)
+    memcpy(&p.geom, geom_host, sizeof(Geom));
+  else
+    memset(&p.geom, 0, sizeof(Geom));
   return p;
 }
 
@@ -514,4 +383,38 @@ extern "C" int triplane_render_cubic_full(TRIPLANE_ARGS) {
 extern "C" int triplane_render_cubic_sigma_only(TRIPLANE_ARGS) {
   return launch<true, true>(make_params(TRIPLANE_PASS),
                             static_cast<cudaStream_t>(stream));
+}
+
+// The grids entries: grids [3, N, 2] f32, view [N, cvp] bf16 (unused by
+// the sigma-only entry), out [N, 4] f32.
+#define GRIDS_ARGS                                                           \
+  const void *table, int H, int W, int cp, const float *grids, int N,       \
+      const void *view, int cvp, const void *w, const float *b,             \
+      const void *wh, const float *bh, int n_density, int n_rgb,            \
+      int skip_every, int align_corners, int avg, float *out, void *stream
+
+static Params grids_params(GRIDS_ARGS) {
+  Params p = make_params(table, H, W, cp, nullptr, nullptr, nullptr, N, 1,
+                         view, cvp, w, b, wh, bh, n_density, n_rgb,
+                         skip_every, nullptr, align_corners, avg, out);
+  p.grids = grids;
+  return p;
+}
+#define GRIDS_PASS                                                           \
+  table, H, W, cp, grids, N, view, cvp, w, b, wh, bh, n_density, n_rgb,     \
+      skip_every, align_corners, avg, out, stream
+
+extern "C" int triplane_render_grids_full(GRIDS_ARGS) {
+  return launch<false, false, true, false>(
+      grids_params(GRIDS_PASS), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int triplane_render_grids_sigma_only(GRIDS_ARGS) {
+  return launch<true, false, true, false>(
+      grids_params(GRIDS_PASS), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int triplane_render_grids_v1(GRIDS_ARGS) {
+  return launch<false, false, true, true>(
+      grids_params(GRIDS_PASS), static_cast<cudaStream_t>(stream));
 }

@@ -121,6 +121,14 @@ triplane_render_cubic_full = CudaKernel(
     "triplane_render.cu", "triplane_render_cubic_full", _TRIPLANE_ARGS)
 triplane_render_cubic_sigma_only = CudaKernel(
     "triplane_render.cu", "triplane_render_cubic_sigma_only", _TRIPLANE_ARGS)
+_GRIDS_ARGS = [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+               _I, _I, _P, _P]
+triplane_render_grids_full = CudaKernel(
+    "triplane_render.cu", "triplane_render_grids_full", _GRIDS_ARGS)
+triplane_render_grids_sigma_only = CudaKernel(
+    "triplane_render.cu", "triplane_render_grids_sigma_only", _GRIDS_ARGS)
+triplane_render_grids_v1 = CudaKernel(
+    "triplane_render.cu", "triplane_render_grids_v1", _GRIDS_ARGS)
 _SAMPLE_FWD_ARGS = [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P]
 plane_sample_fwd = CudaKernel(
     "plane_sample.cu", "plane_sample_fwd", _SAMPLE_FWD_ARGS)
@@ -129,9 +137,16 @@ plane_sample_cubic_fwd = CudaKernel(
 plane_sample_bwd = CudaKernel(
     "plane_sample.cu", "plane_sample_bwd",
     [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+fused_decode = CudaKernel(
+    "fused_decode.cu", "fused_decode",
+    [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
+gather_rows = CudaKernel("gather_rows.cu", "gather_rows",
+                         [_P, _I, _I, _P, _I, _P, _P])
 KERNELS = (triplane_render_full, triplane_render_sigma_only,
            triplane_render_cubic_full, triplane_render_cubic_sigma_only,
-           plane_sample_fwd, plane_sample_cubic_fwd, plane_sample_bwd)
+           plane_sample_fwd, plane_sample_cubic_fwd, plane_sample_bwd,
+           triplane_render_grids_full, triplane_render_grids_sigma_only,
+           triplane_render_grids_v1, fused_decode, gather_rows)
 
 
 def _check(t, name, dtype, device, shape=None, aligned=False):
@@ -192,6 +207,108 @@ def triplane_render(table, packed, origins, directions, z_vals, view, geom,
 
 
 _INT_MAX = 2 ** 31 - 1
+
+
+def triplane_render_grids(table, packed, grids, view, *,
+                          align_corners: bool, avg: bool, sigma_only: bool,
+                          v1: bool = False) -> torch.Tensor:
+    """Launch a grids entry of csrc/triplane_render.cu on the current
+    stream: grids [3, N, 2] f32, per-point view rows [N, cvp] bf16 (None
+    for sigma_only) -> [N, 4] f32 in the points' order (see
+    ops/fused_render.py::tiled_render_chunked for the math); v1: the
+    full-decode triplane_render_grids_v1."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("triplane_render_grids needs CUDA tensors")
+    if v1 and sigma_only:
+        raise ValueError("the v1 grids entry always decodes in full")
+    _, h, w, cp = table.shape
+    n = grids.shape[1]
+    _check(table, "table", torch.bfloat16, dev, (3, h, w, packed.cp),
+           aligned=True)
+    _check(grids, "grids", torch.float32, dev, (3, n, 2), aligned=True)
+    _check(packed.w, "packed.w", torch.bfloat16, dev)
+    _check(packed.b, "packed.b", torch.float32, dev)
+    _check(packed.wh, "packed.wh", torch.bfloat16, dev)
+    _check(packed.bh, "packed.bh", torch.float32, dev)
+    if packed.cp % 16 or packed.cvp % 16:
+        raise ValueError("feature parts must be padded to 16 channels")
+    if sigma_only:
+        view_ptr = None
+    else:
+        _check(view, "view", torch.bfloat16, dev, (n, packed.cvp),
+               aligned=True)
+        view_ptr = view.data_ptr()
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    kern = (triplane_render_grids_v1 if v1 else
+            triplane_render_grids_sigma_only if sigma_only else
+            triplane_render_grids_full)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kern(table.data_ptr(), h, w, cp, grids.data_ptr(), n, view_ptr,
+             packed.cvp, packed.w.data_ptr(), packed.b.data_ptr(),
+             packed.wh.data_ptr(), packed.bh.data_ptr(), packed.n_density,
+             packed.n_rgb, packed.skip_every, int(align_corners), int(avg),
+             out.data_ptr(), stream)
+    return out
+
+
+def fused_decode_forward(rows, ty, view, packed, *, avg: bool
+                         ) -> torch.Tensor:
+    """Launch csrc/fused_decode.cu on the current stream: tap-pair rows
+    [3N, 128] bf16 (plane-major), ty [3N] f32, view [N, 64] f32 -> [N, 8]
+    f32 (see ops/fused_decoder.py for the math)."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError("fused_decode_forward needs CUDA tensors")
+    n = rows.shape[0] // 3
+    _check(rows, "rows", torch.bfloat16, dev, (3 * n, 128), aligned=True)
+    _check(ty, "ty", torch.float32, dev, (3 * n,))
+    _check(view, "view", torch.float32, dev, (n, 64), aligned=True)
+    _check(packed.w, "packed.w", torch.bfloat16, dev)
+    _check(packed.b, "packed.b", torch.float32, dev)
+    _check(packed.wh, "packed.wh", torch.bfloat16, dev)
+    _check(packed.bh, "packed.bh", torch.float32, dev)
+    if packed.cp % 16 or packed.cvp % 16 or max(packed.cp, packed.cvp) > 64:
+        raise ValueError("feature parts must be padded to 16 channels, "
+                         "at most 64")
+    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fused_decode(rows.data_ptr(), ty.data_ptr(), view.data_ptr(), n,
+                     packed.cp, packed.cvp, packed.w.data_ptr(),
+                     packed.b.data_ptr(), packed.wh.data_ptr(),
+                     packed.bh.data_ptr(), packed.n_density, packed.n_rgb,
+                     packed.skip_every, int(avg), out.data_ptr(), stream)
+    return out
+
+
+def gather_rows_forward(table, idx) -> torch.Tensor:
+    """Launch csrc/gather_rows.cu on the current stream: table [HW, C]
+    f32 at int32 indices [N] -> [N, C] f32 (N * C a multiple of 4). The
+    kernel asserts on the device that each index lies in [0, HW)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("gather_rows_forward needs CUDA tensors")
+    hw, c = table.shape
+    n = idx.shape[0]
+    _check(table, "table", torch.float32, dev, aligned=True)
+    _check(idx, "idx", torch.int32, dev, (n,))
+    if (n * c) % 4:
+        raise ValueError("gather_rows_forward: N * C must be a multiple "
+                         "of 4")
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        gather_rows(table.data_ptr(), hw, c, idx.data_ptr(), n,
+                    out.data_ptr(), stream)
+    return out
 
 
 def plane_sample_forward(table, grids, channels: int, *,

@@ -2,7 +2,9 @@
 parameter init, the reference (non-kernel) path, and the kernel paths
 of `apply_triplane_rays_from_z` (the fused eval gather+decode; the eval
 plane sampler with the plain decoder, for configs the fused kernel does
-not take; and the trainable plane sampler).
+not take; and the trainable plane sampler) and of the points entry
+`apply_triplane_rays(tile_cfg=...)` (the fused kernel's grids entry, or
+the same eval sampler route).
 
 Decoder parameters are the JAX pytree layout with torch tensors
 (`bridge.decoder_from_jax`, `init_decoder_params`): {"members":
@@ -201,9 +203,19 @@ def point_coords_noise(xyz, cfg: TriplaneConfig, plane_resolution: int,
                                    dtype=xyz.dtype, device=xyz.device)
 
 
+@functools.lru_cache(maxsize=16)
+def rot_mats_on(num_planes: int, device: torch.device) -> torch.Tensor:
+    """make_rot_mats(num_planes) as a tensor on `device`, copied there
+    once: PyTorch synchronizes the stream after a copy from pageable host
+    memory, so a copy per call makes the host wait for the device."""
+    return torch.as_tensor(make_rot_mats(num_planes), device=device)
+
+
 def project_to_planes(coords, rot_mats):
-    """[N, 3] coords -> [P, N, 2] per-plane projections (columns 1:3)."""
-    rot = torch.as_tensor(np.asarray(rot_mats), dtype=coords.dtype,
+    """[N, 3] coords -> [P, N, 2] per-plane projections (columns 1:3);
+    rot_mats [P, 3, 3], numpy or a tensor."""
+    rot = torch.as_tensor(rot_mats if torch.is_tensor(rot_mats)
+                          else np.asarray(rot_mats), dtype=coords.dtype,
                           device=coords.device)
     return torch.einsum("nc,pck->pnk", coords, rot[:, :, 1:])
 
@@ -354,18 +366,64 @@ def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
                               member=member, sigma_only=sigma_only)
 
 
+# JAX's chunk cap (NVSR_CHUNK_CAP, triplane.py:590-599): the fused kernel
+# takes a pass only when tile_rays * slab <= 512 after the slab is halved
+# as far as 1, i.e. when tile_rays <= 512
+CHUNK_CAP = 512
+
+
 def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                         box, pts, viewdirs, *, member: int = 0,
                         noise_generator=None,
                         plane_resolution: Optional[int] = None,
                         rot_mats=None, sigma_only: bool = False,
-                        trainable: bool = False):
+                        trainable: bool = False, tile_cfg=None, table=None,
+                        packed=None, form: str = "v2"):
     """Ray-structured forward: pts [R, S, 3] + per-ray viewdirs [R, 3] ->
-    [R, S, 4]. The view plane is sampled once per ray and broadcast."""
+    [R, S, 4]. The view plane is sampled once per ray and broadcast.
+
+    tile_cfg: a TileSamplerConfig (ops/plane_sample.py): the points entry
+    of the tiled eval forward (JAX triplane.py:456-498 into
+    _apply_triplane_rays_tiled :553-761 with no origins). R must be a
+    multiple of tile_cfg.tile_rays (ValueError, as JAX asserts). The
+    route is JAX's:
+      * fused: a bilinear config that fused_render.supports, 3 planes and
+        tile_rays <= CHUNK_CAP: the points' plane coordinates through the
+        grids entry of the gather+decode kernel
+        (fused_render.tiled_render_chunked) with bf16 view rows per
+        point; form "v1" takes the TPU v1 kernel's rounding (JAX:
+        NVSR_MEGA_V1=1), "v2" its default;
+      * any other config (bicubic, an f32 decoder, tile_rays over the
+        cap): the eval plane sampler kernel (ops/plane_sample.py,
+        bilinear or bicubic) and decode_projections in plain torch.
+    JAX's depth slab, region dims and chunk order are the TPU kernel's
+    chunking and have no counterpart: the kernels take the points in
+    their own order. `table` and `packed` are the per-scene plane table
+    and packed decoder (built here when not given). `rot_mats` defaults
+    to the fixed bases held on the points' device (rot_mats_on); a numpy
+    array is copied there on every call, which makes the host wait for
+    the device. Eval only: no trainable, no noise_generator."""
     r, s, _ = pts.shape
-    view_proj = None
+    if tile_cfg is not None:
+        if trainable:
+            raise ValueError("the tiled points entry is eval-only; the "
+                             "trainable route is apply_triplane_rays_from_z"
+                             "(trainable=True)")
+        assert noise_generator is None, \
+            "point_coords_noise requires the trainable route"
+        if r % tile_cfg.tile_rays:
+            raise ValueError(f"{r} rays are not a multiple of tile_rays "
+                             f"{tile_cfg.tile_rays}")
+    vp_ray = None
     if cfg.use_viewdirs and not sigma_only:
         vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg)
+    if tile_cfg is not None:
+        return _tiled_points(params, cfg, planes_pos, box, pts, vp_ray,
+                             tile_cfg, member=member, rot_mats=rot_mats,
+                             table=table, packed=packed,
+                             sigma_only=sigma_only, form=form)
+    view_proj = None
+    if vp_ray is not None:
         view_proj = vp_ray[:, None, :].expand(r, s, vp_ray.shape[-1]
                                               ).reshape(r * s, -1)
     out = apply_triplane_points(params, cfg, planes_pos, box,
@@ -375,6 +433,67 @@ def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                                 plane_resolution=plane_resolution,
                                 rot_mats=rot_mats, sigma_only=sigma_only,
                                 trainable=trainable)
+    return out.reshape(r, s, 4)
+
+
+def _plane_coords(xyz_raw, box, rot):
+    """Raw points [N, 3] -> [P, N, 2] normalized plane coordinates."""
+    box_t = torch.as_tensor(box, dtype=xyz_raw.dtype, device=xyz_raw.device)
+    return project_to_planes(normalize_coords(xyz_raw, box_t[:, :3]),
+                             rot).contiguous()
+
+
+def _sampled_decode(params, cfg: TriplaneConfig, table, grids, vp_ray,
+                    r: int, s: int, *, member: int, sigma_only: bool):
+    """The non-fused tiled eval route (JAX triplane.py:707-760): the
+    positional planes through the eval plane sampler's kernel at grids
+    [P, R*S, 2], the per-ray view features vp_ray [R, Cv] (or None)
+    broadcast to the points, decode_projections in plain torch at the
+    config's own dtype -> [R, S, 4]."""
+    from nvsr_tpu_torch.ops.plane_sample import sample_forward
+    # all Cp table channels (the kernel takes multiples of 8), then the
+    # config's
+    pos_projs = sample_forward(table, grids, table.shape[-1],
+                               cfg.align_corners,
+                               cfg.plane_interp == "bicubic"
+                               )[..., :cfg.num_plane_channels]
+    view_proj = None
+    if vp_ray is not None:
+        view_proj = vp_ray[:, None, :].expand(
+            r, s, vp_ray.shape[-1]).reshape(r * s, -1)
+    out = decode_projections(params, cfg, pos_projs, view_proj,
+                             member=member, sigma_only=sigma_only)
+    return out.reshape(r, s, 4)
+
+
+def _tiled_points(params, cfg: TriplaneConfig, planes_pos, box, pts, vp_ray,
+                  tile_cfg, *, member: int, rot_mats, table, packed,
+                  sigma_only: bool, form: str):
+    """The routes of apply_triplane_rays(tile_cfg=...)."""
+    from nvsr_tpu_torch.ops import fused_render
+    r, s, _ = pts.shape
+    rot = rot_mats if rot_mats is not None \
+        else rot_mats_on(cfg.num_planes, pts.device)
+    if table is None:
+        table = fused_render.build_plane_table(planes_pos)
+    grids = _plane_coords(pts.reshape(-1, 3), box, rot)
+    fused = (cfg.plane_interp == "bilinear"
+             and fused_render.supports(cfg)
+             and (vp_ray is not None or sigma_only)
+             and planes_pos.shape[0] == 3
+             and tile_cfg.tile_rays <= CHUNK_CAP)
+    if not fused:
+        return _sampled_decode(params, cfg, table, grids, vp_ray, r, s,
+                               member=member, sigma_only=sigma_only)
+    if packed is None:
+        packed = fused_render.pack_decoder(params, cfg, member)
+    view = None
+    if vp_ray is not None:
+        view = fused_render.view_rows(vp_ray, packed.cvp)[:, None, :].expand(
+            r, s, packed.cvp).reshape(r * s, packed.cvp)
+    out, _ = fused_render.tiled_render_chunked(
+        table, packed, grids, view, align_corners=cfg.align_corners,
+        avg=cfg.proj_combination == "avg", sigma_only=sigma_only, form=form)
     return out.reshape(r, s, 4)
 
 
@@ -427,24 +546,14 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
         vp_ray = sample_viewdir_plane(plane_view, viewdirs, box, cfg,
                                       dense=True)
     if not fused_render.supports(cfg):
-        from nvsr_tpu_torch.ops.plane_sample import sample_forward
         r, s = z_vals.shape
         pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
-        box_t = torch.as_tensor(box, dtype=pts.dtype, device=pts.device)
-        grids = project_to_planes(
-            normalize_coords(pts.reshape(-1, 3), box_t[:, :3]), rot)
-        # all Cp table channels (the kernel takes multiples of 8), then
-        # the config's
-        pos_projs = sample_forward(table, grids.contiguous(),
-                                   table.shape[-1], cfg.align_corners,
-                                   cubic)[..., :cfg.num_plane_channels]
-        view_proj = None
-        if vp_ray is not None:
-            view_proj = vp_ray[:, None, :].expand(
-                r, s, vp_ray.shape[-1]).reshape(r * s, -1)
-        out = decode_projections(params, cfg, pos_projs, view_proj,
-                                 member=member, sigma_only=sigma_only)
-        return out.reshape(r, s, 4), {"overflow_frac": 0.0}
+        if rot_mats is None:
+            rot = rot_mats_on(cfg.num_planes, pts.device)
+        return _sampled_decode(
+            params, cfg, table, _plane_coords(pts.reshape(-1, 3), box, rot),
+            vp_ray, r, s, member=member,
+            sigma_only=sigma_only), {"overflow_frac": 0.0}
     if packed is None:
         packed = fused_render.pack_decoder(params, cfg, member)
     if geom is None:

@@ -1,11 +1,14 @@
 """Host side of the triplane gather+decode kernel, and its plain version.
 
 Counterpart of nvsr_tpu/ops/pallas/tile_sampler.py::tiled_render_rays
-(the entry of the TPU megakernel `_mega_kernel_v2`) together with
+(the entry of the TPU megakernel `_mega_kernel_v2`) and of its grids
+entry `tiled_render_chunked` (:1464, `_mega_kernel_v2` or, under
+NVSR_MEGA_V1=1, `_mega_kernel`), together with
 nvsr_tpu/ops/pallas/fused_decoder.py::supports / pack_decoder_weights.
 The CUDA kernel is csrc/triplane_render.cu (built and bound by
-kernels.py); `fused_render_reference` below is its plain PyTorch version
-with the same rounding, used on the CPU and as the kernel's oracle.
+kernels.py); `fused_render_reference` and `tiled_render_chunked_reference`
+below are its plain PyTorch versions with the same rounding, used on the
+CPU and as the kernel's oracles.
 
 What both compute, per point of rays x sorted depths (ray-major):
   * the point o + d*z, normalized by the scene box, projected onto the
@@ -26,7 +29,13 @@ What both compute, per point of rays x sorted depths (ray-major):
     relu activations kept in bf16; skip layers re-concatenate the branch
     input; heads give rgb (lanes 0:3) and sigma (lane 3);
   * sigma_only: the rgb branch is skipped, rgb lanes hold the fc_rgb
-    bias, sigma is computed by the same code as in the full decode.
+    bias, sigma is computed by the same code as in the full decode;
+  * the grids entry (bilinear only) takes the points' normalized plane
+    coordinates [3, N, 2] and a view row per point, and returns [N, 4]
+    in the points' order. Its form "v1" is the TPU `_mega_kernel`'s
+    rounding (tile_sampler.py:845-847, 869-870): the two x-interpolated
+    rows rounded to bf16, the y-lerp top * (1 - ty) + bot * ty, and
+    always the full decode (that kernel ignores sigma_only).
 
 overflow_frac is always 0.0: on Hopper each point's four taps per plane
 are plain loads, so no chunk footprint is ever clamped to a region.
@@ -226,7 +235,8 @@ def plane_grids(origins, directions, z_vals, geom):
 CUBIC_ROWS = (0, 1, -1, 2)
 
 
-def _bilinear_feature(cells, grid, h: int, w: int, align_corners: bool):
+def _bilinear_feature(cells, grid, h: int, w: int, align_corners: bool,
+                      v1: bool = False):
     x, y, x0, x1, y0, y1 = _corners(grid, h, w, align_corners)
     tx = (x - torch.floor(x))[:, None]
     ty = (y - torch.floor(y))[:, None]
@@ -235,6 +245,8 @@ def _bilinear_feature(cells, grid, h: int, w: int, align_corners: bool):
     v10, v11 = cells[y1 * w + x0].float(), cells[y1 * w + x1].float()
     top = w0 * v00 + w1 * v01
     bot = w0 * v10 + w1 * v11
+    if v1:
+        return _bf16(top) * (1.0 - ty) + _bf16(bot) * ty
     return top + ty * (bot - top)
 
 
@@ -263,22 +275,19 @@ def gather_features(table, origins, directions, z_vals, geom,
                                                  z_vals, geom))]
 
 
-def fused_render_reference(table, packed: PackedDecoder, origins,
-                           directions, z_vals, view, geom, *,
-                           align_corners: bool, avg: bool, sigma_only: bool,
-                           cubic: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> [R, S, 4] f32."""
-    r, s = z_vals.shape
-    f0, f1, f2 = gather_features(table, origins, directions, z_vals, geom,
-                                 align_corners, cubic)
+def decode_reference(packed: PackedDecoder, f0, f1, f2, view, *,
+                     avg: bool, sigma_only: bool) -> torch.Tensor:
+    """The kernels' decoder in plain PyTorch: f32 features [N, Cp] of the
+    three planes and view rows [N, cvp] (any float type; None for
+    sigma_only) -> [N, 4] f32 (rgb, sigma)."""
+    n = f0.shape[0]
     comb = f0 + f1 + f2
     if avg:
         comb = comb / 3.0
     parts = {"comb": _bf16(comb), "f0": _bf16(f0), "f1": _bf16(f1),
              "f2": _bf16(f2)}
     if not sigma_only:
-        parts["fv"] = view.float()[:, None, :].expand(
-            r, s, packed.cvp).reshape(r * s, packed.cvp)
+        parts["fv"] = _bf16(view.float())
     w = packed.w.float()
     acts = {}
     for li, (branch, ln, off, k, names) in enumerate(packed.layers()):
@@ -291,10 +300,26 @@ def fused_render_reference(table, packed: PackedDecoder, origins,
     wh = packed.wh.float()
     sigma = (acts["density"] @ wh[1])[:, 3:4] + packed.bh[3]
     if sigma_only:
-        rgb = packed.bh[:3].expand(r * s, 3)
+        rgb = packed.bh[:3].expand(n, 3)
     else:
         rgb = (acts["rgb"] @ wh[0])[:, :3] + packed.bh[:3]
-    return torch.cat([rgb, sigma], dim=-1).reshape(r, s, 4)
+    return torch.cat([rgb, sigma], dim=-1)
+
+
+def fused_render_reference(table, packed: PackedDecoder, origins,
+                           directions, z_vals, view, geom, *,
+                           align_corners: bool, avg: bool, sigma_only: bool,
+                           cubic: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> [R, S, 4] f32."""
+    r, s = z_vals.shape
+    feats = gather_features(table, origins, directions, z_vals, geom,
+                            align_corners, cubic)
+    view_pts = None
+    if not sigma_only:
+        view_pts = view[:, None, :].expand(r, s, packed.cvp).reshape(
+            r * s, packed.cvp)
+    return decode_reference(packed, *feats, view_pts, avg=avg,
+                            sigma_only=sigma_only).reshape(r, s, 4)
 
 
 def fused_render_rays(table, packed: PackedDecoder, origins, directions,
@@ -318,4 +343,54 @@ def fused_render_rays(table, packed: PackedDecoder, origins, directions,
         out = kernels.triplane_render(
             table, packed, origins.contiguous(), directions.contiguous(),
             z_vals.contiguous(), view, geom, **kw)
+    return out, {"overflow_frac": 0.0}
+
+
+def tiled_render_chunked_reference(table, packed: PackedDecoder, grids,
+                                   view, *, align_corners: bool, avg: bool,
+                                   sigma_only: bool,
+                                   form: str = "v2") -> torch.Tensor:
+    """Plain PyTorch version of the grids entries -> [N, 4] f32 (form and
+    sigma_only as tiled_render_chunked takes them)."""
+    _, h, w, cp = table.shape
+    feats = [_bilinear_feature(table[p].reshape(h * w, cp), grids[p], h, w,
+                               align_corners, v1=form == "v1")
+             for p in range(3)]
+    return decode_reference(packed, *feats, view, avg=avg,
+                            sigma_only=sigma_only)
+
+
+def tiled_render_chunked(table, packed: PackedDecoder, grids, view, *,
+                         align_corners: bool, avg: bool, sigma_only: bool,
+                         form: str = "v2"):
+    """Gather + decode at given plane coordinates, bilinear: grids
+    [3, N, 2] f32 normalized (x, y) of N points, view [N, cvp] bf16 rows
+    (one per point; None for a v2 sigma_only call) -> ([N, 4] f32 in the
+    points' order, {"overflow_frac": 0.0}).
+
+    form: "v2" (the TPU default, `_mega_kernel_v2`) or "v1" (the TPU
+    `_mega_kernel`, chosen there by NVSR_MEGA_V1=1): v1 rounds the
+    x-interpolated rows to bf16 and always decodes in full, as that
+    kernel ignores sigma_only; with sigma_only and no view it reads zero
+    view rows, as JAX's caller passes.
+
+    A CPU table runs the plain version; any other table goes to the
+    kernel (kernels.triplane_render_grids), which launches on a CUDA
+    table and raises on any other device or on any failure."""
+    if form not in ("v1", "v2"):
+        raise ValueError(f"form must be 'v1' or 'v2', got {form!r}")
+    n = grids.shape[1]
+    if form == "v1" and sigma_only:
+        sigma_only = False
+        if view is None:
+            view = torch.zeros((n, packed.cvp), dtype=torch.bfloat16,
+                               device=table.device)
+    kw = dict(align_corners=align_corners, avg=avg, sigma_only=sigma_only)
+    if table.device.type == "cpu":
+        out = tiled_render_chunked_reference(table, packed, grids, view,
+                                             form=form, **kw)
+    else:
+        from nvsr_tpu_torch import kernels
+        out = kernels.triplane_render_grids(
+            table, packed, grids.contiguous(), view, v1=form == "v1", **kw)
     return out, {"overflow_frac": 0.0}

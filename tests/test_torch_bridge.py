@@ -74,13 +74,15 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nvsr_tpu'))\n"
-        "print(len(mods), bad)\n")
+        "print(' '.join(mods), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 12 and bad.strip() == "[]", out.stdout
+    *mods, bad = out.stdout.split(" ")
+    assert len(mods) >= 19 and bad.strip() == "[]", out.stdout
+    assert {"nvsr_tpu_torch.ops." + m for m in (
+        "fused_render", "fused_decoder", "gather_dma")} <= set(mods), mods
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -124,6 +126,39 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                 None, torch.zeros((2, 3)), None, None,
                                 align_corners=True, avg=True,
                                 sigma_only=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.triplane_render_grids(torch.zeros((3, 4, 4, 16)), None,
+                                      torch.zeros((3, 5, 2)), None,
+                                      align_corners=True, avg=True,
+                                      sigma_only=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fused_decode_forward(torch.zeros((3, 128)), None, None,
+                                     None, avg=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gather_rows_forward(torch.zeros((4, 4)), None)
+
+
+def test_new_entries_send_other_devices_to_the_kernel():
+    """The points entry's grids kernel, the standalone decoder and the row
+    gather dispatch on the tensor's device alone: a tensor that is not on
+    the CPU (here on the meta device) goes to the kernel wrapper, which
+    raises; the plain version is never taken."""
+    from nvsr_tpu_torch.ops import fused_decoder, fused_render, gather_dma
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_render.tiled_render_chunked(
+            torch.zeros((3, 4, 4, 16), **meta), None,
+            torch.zeros((3, 5, 2), **meta), None, align_corners=True,
+            avg=True, sigma_only=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_decoder.fused_decode(torch.zeros((3, 128), **meta),
+                                   torch.zeros((3,), **meta),
+                                   torch.zeros((1, 64), **meta), None,
+                                   avg=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_dma.gather_rows_dma(torch.zeros((4, 256), **meta),
+                                   torch.zeros((1024,), dtype=torch.int32,
+                                               **meta))
 
 
 def test_bridge_defaults_to_the_card():

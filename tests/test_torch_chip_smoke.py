@@ -61,3 +61,15 @@ def test_bicubic_phase_rehearses_on_the_cpu():
                  sr_blocks=1, sr_scale=2, reps=1)
     assert cs.bicubic_phase("cpu", cs.camera([3.8, 0.5, 0.7]), w=small,
                             on_card=False) == {}
+
+
+def test_points_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's points-entry phase on the CPU, through the plain
+    versions at a tiny size: SR, the frame through the public points entry
+    (v2 and v1) against the from-rays frame (>= 45 dB), and the standalone
+    decoder and the row gather on the fine pass's data."""
+    cs = _chip_smoke()
+    small = dict(image=16, channels=8, res=12, view_res=4, sr_hidden=4,
+                 sr_blocks=1, sr_scale=2, reps=1)
+    assert cs.points_phase("cpu", cs.camera([3.8, 0.5, 0.7]), w=small,
+                           on_card=False) == {}

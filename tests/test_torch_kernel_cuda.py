@@ -212,3 +212,98 @@ def test_meta_tensors_raise(device):
             ps.sample_forward(torch.zeros((3, 4, 4, 16), device="meta"),
                               torch.zeros((3, 5, 2), device="meta"), 16,
                               True, cubic=cubic)
+
+
+# -- the grids entries of csrc/triplane_render.cu, the standalone decoder
+# (csrc/fused_decode.cu) and the row gather (csrc/gather_rows.cu). The
+# grids entries and the decoder share every rounding with their plain
+# versions up to the decoder (atol 2e-2, mean 1e-3, as above); the gather
+# copies, bit-equal.
+
+
+def _grids_inputs(device, layers=4, chans=48, seed=3):
+    table, packed, origins, dirs, z, view, geom = _inputs(
+        device, layers, chans, R=300, S=24, seed=seed)
+    r, s = z.shape
+    grids = torch.stack(fused_render.plane_grids(origins, dirs, z, geom))
+    # a fifth of the points past the border
+    grids[:, ::5] *= 1.3
+    view_pts = view[:, None, :].expand(r, s, packed.cvp).reshape(
+        r * s, packed.cvp).contiguous()
+    return table, packed, grids.contiguous(), view_pts
+
+
+@pytest.mark.parametrize("form,sigma_only", [("v2", False), ("v2", True),
+                                             ("v1", False)])
+@pytest.mark.parametrize("layers,chans", [(4, 48), (6, 16)])
+def test_grids_entries_match_plain(device, layers, chans, form, sigma_only):
+    table, packed, grids, view = _grids_inputs(device, layers, chans)
+    kern = (kernels.triplane_render_grids_v1 if form == "v1" else
+            kernels.triplane_render_grids_sigma_only if sigma_only else
+            kernels.triplane_render_grids_full)
+    before = kern.launches
+    kw = dict(align_corners=True, avg=True, sigma_only=sigma_only)
+    out, aux = fused_render.tiled_render_chunked(table, packed, grids, view,
+                                                 form=form, **kw)
+    ref = fused_render.tiled_render_chunked_reference(
+        table, packed, grids, view, form=form, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (grids.shape[1], 4) and aux == {"overflow_frac": 0.0}
+    err = (out - ref).abs()
+    assert err.max() < 2e-2 and err.mean() < 1e-3, err.max()
+    assert kern.launches == before + 1
+
+
+def test_grids_entry_equals_the_ray_entry(device):
+    """At the plane coordinates of o + d*z (computed by plane_grids as the
+    ray entry computes them in the kernel) and the ray's view row per
+    point, the v2 grids entries give the ray entries' output bit for bit."""
+    table, packed, origins, dirs, z, view, geom = _inputs(device, seed=4)
+    r, s = z.shape
+    grids = torch.stack(fused_render.plane_grids(origins, dirs, z, geom)
+                        ).contiguous()
+    view_pts = view[:, None, :].expand(r, s, packed.cvp).reshape(
+        r * s, packed.cvp).contiguous()
+    for so in (False, True):
+        kw = dict(align_corners=True, avg=True, sigma_only=so)
+        rays = kernels.triplane_render(table, packed, origins, dirs, z, view,
+                                       geom, **kw)
+        pts = kernels.triplane_render_grids(table, packed, grids,
+                                            None if so else view_pts, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(rays.reshape(r * s, 4), pts), so
+
+
+def test_fused_decode_matches_plain(device):
+    from nvsr_tpu_torch.ops import fused_decoder as fd
+    _, packed, *_ = _inputs(device, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    n = 1000
+    rows = (0.5 * torch.randn((3 * n, 128), generator=gen)).to(
+        torch.bfloat16).to(device)
+    ty = torch.rand((3 * n,), generator=gen).to(device)
+    view = torch.randn((n, 64), generator=gen).to(device)
+    before = kernels.fused_decode.launches
+    out = fd.fused_decode(rows, ty, view, packed, avg=True)
+    ref = fd.fused_decode_reference(rows, ty, view, packed, avg=True)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 8) and torch.all(out[:, 4:] == 0)
+    err = (out - ref).abs()
+    assert err.max() < 2e-2 and err.mean() < 1e-3, err.max()
+    assert kernels.fused_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("hw,c", [(4096, 256), (1024, 48), (4096, 4),
+                                  (4096, 2)])
+def test_gather_rows_bit_equal(device, hw, c):
+    from nvsr_tpu_torch.ops import gather_dma as gd
+    gen = torch.Generator().manual_seed(7)
+    table = torch.randn((hw, c), generator=gen).to(device)
+    idx = torch.randint(0, hw, (3 * 1024,), generator=gen,
+                        dtype=torch.int32).to(device)
+    before = kernels.gather_rows.launches
+    out = (gd.gather_rows_dma(table, idx) if 1024 % c == 0 else
+           kernels.gather_rows_forward(table, idx))
+    torch.cuda.synchronize()
+    assert torch.equal(out, gd.gather_rows_reference(table, idx))
+    assert kernels.gather_rows.launches == before + 1
