@@ -45,14 +45,15 @@ Phases (any failure raises and the script exits non-zero):
      bilinear config through the non-fused route;
   7. the points entry (apply_triplane_rays(tile_cfg=...), the flagship of
      phase 3 with seed 3): the four ray entries of triplane_render.cu
-     against output digests pinned from the build before its decoder moved
-     to csrc/decoder.cuh (compared when nvcc is the release they were
+     against pinned output digests (those of the wmma decoder, which the
+     wgmma decoder reproduces; compared when nvcc is the release they were
      taken with); the three grids entries against their plain versions at
      phase 2's pass shapes (v2 coarse sigma-only, v2 and v1 fine), the
      standalone decoder at the fine pass's tap pairs (its rgb and sigma
      must equal the v1 entry's bit for bit) and the row gather at
-     gather_dma.py's own workload (beside torch.index_select); then, with
-     launch counts
+     gather_dma.py's own workload (beside torch.index_select, in turns);
+     the decoder of the fine pass and of the standalone decoder also as
+     per-layer cuBLAS calls (layered_ms); then, with launch counts
      zeroed, SR and the 800x800 frame through a point fn that calls the
      public points entry, v2 and v1 (each >= 45 dB from the from-rays
      frame), and the two public ops that no render path calls, as in JAX
@@ -63,6 +64,12 @@ Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
 The last two lines are the kernels JSON and the result JSON.
+
+python3 chip_smoke.py --times [ROOT ...] checks nothing: it times the
+decoder's kernels, the row gather and the flagship frame for the package
+under each ROOT (default: this checkout), each in its own process, to
+compare builds in one call (e.g. a parent checkout unpacked under build/,
+then this one).
 """
 
 import dataclasses
@@ -210,6 +217,66 @@ def frame_ms(fn, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)
+
+
+def interleaved_ms(fns, warmup=3, reps=25):
+    """Per-call CUDA-event times (ms) of each fn, called in turns (a, b,
+    a, b, ...) after `warmup` turns -> one sorted list per fn. Before each
+    call the stream sleeps ~1 ms on the card, so the call is queued before
+    its start event fires: the time is the device's, without the host's
+    launch overhead."""
+    import torch
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [sorted(ts) for ts in times]
+
+
+def spread(ts):
+    """'median (min .. max)' of sorted times."""
+    return f"{ts[len(ts) // 2]:.4f} ms ({ts[0]:.4f} .. {ts[-1]:.4f})"
+
+
+def layered_decoder(packed, parts):
+    """The decoder as per-layer bf16 torch.matmul + bias + relu calls
+    (cuBLAS), on bf16 feature parts {"comb", "f0", "f1", "f2", "fv"}
+    [N, width] -> rgb [N, 3] and sigma [N, 1] (bf16): the yardstick of the
+    hand-fused decoder (`layered_ms`); the port never calls it."""
+    import torch
+    acts = {}
+    for li, (branch, _, off, k, names) in enumerate(packed.layers()):
+        x = torch.cat([acts[branch] if nm == "x" else parts[nm]
+                       for nm in names], dim=-1) if len(names) > 1 else (
+            acts[branch] if names[0] == "x" else parts[names[0]])
+        y = torch.matmul(x, packed.w[off:off + k])
+        acts[branch] = y.add_(parts["bias"][li]).relu_()
+    return (torch.matmul(acts["rgb"], parts["wh"][0][:, :3]),
+            torch.matmul(acts["density"], parts["wh"][1][:, 3:4]))
+
+
+def layered_parts(packed, f0, f1, f2, view, avg=True):
+    """layered_decoder's inputs from f32 features [N, cp] of the three
+    planes and view rows [N, >= cvp]."""
+    import torch
+    bf = torch.bfloat16
+    comb = f0 + f1 + f2
+    if avg:
+        comb = comb / 3.0
+    return {"comb": comb.to(bf).contiguous(), "f0": f0.to(bf).contiguous(),
+            "f1": f1.to(bf).contiguous(), "f2": f2.to(bf).contiguous(),
+            "fv": view[:, :packed.cvp].to(bf).contiguous(),
+            "bias": packed.b.to(bf), "wh": packed.wh}
 
 
 def camera(eye):
@@ -681,15 +748,12 @@ def gate_scene(dev):
     return a, frame
 
 
-def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
-                  occ, ro, rd):
-    """The triplane kernel's two entries for cfg.plane_interp against their
-    plain versions at the flagship pass shapes, one RAY_BLOCK block each
-    (coarse S=16 sigma-only on the LR planes, fine S=32 full decode on the
-    SR planes), timed with CUDA events; the sigma-only entry's sigma
-    bit-equal to the full one's -> (kernel entries, the fine call's
-    arguments)."""
-    import torch
+def pass_args(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
+              occ, ro, rd):
+    """The triplane kernel's arguments for one RAY_BLOCK block of the
+    flagship passes (coarse S=16 sigma-only on the LR planes, fine S=32 on
+    the SR planes, depths from the coarse pass through the kernel) for
+    cfg.plane_interp -> (coarse args, fine args)."""
     from nvsr_tpu_torch import kernels
     from nvsr_tpu_torch.models.triplane import (make_rot_mats,
                                                 sample_viewdir_plane)
@@ -700,7 +764,6 @@ def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
     from nvsr_tpu_torch.render import (make_ray_bundle, tighten_bundle,
                                        tile_ray_maps)
     cubic = cfg.plane_interp == "bicubic"
-    kind = "triplane_render_cubic_" if cubic else "triplane_render_"
     rays = make_ray_bundle(tile_ray_maps(ro, 16), tile_ray_maps(rd, 16),
                            2.0, 6.0, use_viewdirs=True)
     rays = tighten_bundle(rays, occ, tile_rays=256)
@@ -722,6 +785,24 @@ def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
         plane_view, blk.viewdirs, box, cfg, dense=True), pk_f.cvp)
     fine_args = (tab_f, pk_f, blk.origins.contiguous(),
                  blk.directions.contiguous(), z_f.contiguous(), view, geom)
+    return coarse_args, fine_args
+
+
+def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
+                  occ, ro, rd):
+    """The triplane kernel's two entries for cfg.plane_interp against their
+    plain versions at the flagship pass shapes (pass_args), timed with
+    CUDA events; the sigma-only entry's sigma bit-equal to the full one's
+    -> (kernel entries, the fine call's arguments)."""
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops import fused_render
+    cubic = cfg.plane_interp == "bicubic"
+    kind = "triplane_render_cubic_" if cubic else "triplane_render_"
+    coarse_args, fine_args = pass_args(cfg, dec_c, dec_f, planes_lr,
+                                       planes_sr, plane_view, box, occ, ro,
+                                       rd)
+    tab_c, tab_f = coarse_args[0], fine_args[0]
     entries = {}
     for name, args, so, shape in (
             (kind + "sigma_only", coarse_args, True, "coarse S=16 on "
@@ -759,6 +840,22 @@ def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
                          "max_abs_err": err.max().item(), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": None}
+        if not so:
+            # the yardstick: the same decoder as cuBLAS layers, on the
+            # pass's features (the gather not included)
+            tab, pk, o, d, z, view, geom = args
+            r, s_ = z.shape
+            parts = layered_parts(pk, *fused_render.gather_features(
+                tab, o, d, z, geom, True, cubic), view[:, None, :].expand(
+                    r, s_, pk.cvp).reshape(r * s_, pk.cvp))
+            lay_ms = cuda_ms(lambda: layered_decoder(pk, parts), warmup=3,
+                             reps=20)
+            del parts
+            entries[name]["layered_ms"] = lay_ms
+            print(f"[check] {name}: the decoder alone as bf16 cuBLAS layers "
+                  f"(torch.matmul + bias + relu per layer, N={r * s_}) "
+                  f"layered_ms {lay_ms:.3f}, against the kernel's "
+                  f"{ms:.3f} ms with its gather")
     # sigma_only sigma == full-decode sigma, bit for bit
     kw = dict(align_corners=True, avg=True, cubic=cubic)
     so_out = kernels.triplane_render(*fine_args, sigma_only=True, **kw)
@@ -981,11 +1078,13 @@ def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True):
 
 # sha256 of the four ray entries' outputs on the inputs of
 # triplane_digests(), as csrc/triplane_render.cu gave them on the H100
-# before its decoder moved to csrc/decoder.cuh (the build of the parent
-# commit of that move, nvcc 12.9): the move must leave every bit as it
-# was. Another nvcc may schedule the decoder's f32 steps otherwise, so
-# they are compared only under the release they were taken with; a
-# deliberate change of the ray entries' decoder replaces them
+# (nvcc 12.9) with the wmma decoder, before and after it moved to
+# csrc/decoder.cuh. The wgmma decoder (persistent blocks, activations in
+# registers) gives the same digests: its tensor cores sum each point's
+# products in the same K order, so the redesign changed no bit, and any
+# later refactor must not either. Another nvcc may schedule the f32 steps
+# otherwise, so they are compared only under the release they were taken
+# with; a deliberate change of the ray entries' numerics replaces them
 TRIPLANE_DIGESTS_NVCC = "12.9"
 TRIPLANE_DIGESTS = {
     "triplane_render_full":
@@ -1242,6 +1341,10 @@ def decoder_check(fine, v1):
                                                     avg=True))
     plain_ms = cuda_ms(lambda: fused_decoder.fused_decode_reference(
         rows, ty, view32, pk, avg=True), warmup=1, reps=3)
+    feats = fused_decoder.lerp_pair(rows, ty, pk.cp).reshape(3, n, pk.cp)
+    parts = layered_parts(pk, *feats, view32)
+    lay_ms = cuda_ms(lambda: layered_decoder(pk, parts), warmup=3, reps=20)
+    del feats, parts
     # bytes: what the kernel reads, once: per plane and point the first cp
     # channels of each tap half and ty, per point cvp view lanes (the pad
     # lanes cannot count), the weights; the output once. Operations: the
@@ -1256,7 +1359,9 @@ def decoder_check(fine, v1):
     print(f"[points] fused_decode (N={n}): max err {err.max().item():.3e} "
           f"mean {err.mean().item():.3e} (tol max {MAX_ABS_TOL}, mean "
           f"{MEAN_ABS_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}); rgb and sigma "
+          f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}); the same "
+          f"decoder as bf16 cuBLAS layers, layered_ms {lay_ms:.3f}; rgb "
+          f"and sigma "
           f"bit-identical to the v1 grids entry on the same tap pairs: "
           f"{'yes' if same else 'no'}; the v1 entry (gather + decode) "
           f"{v1[1]:.3f} ms")
@@ -1270,7 +1375,8 @@ def decoder_check(fine, v1):
         "source": "nvsr_tpu_torch/csrc/fused_decode.cu",
         "replaces": "nvsr_tpu/ops/pallas/fused_decoder.py:220",
         "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}}
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "layered_ms": lay_ms}}
 
 
 # gather_dma.py's own workload (its docstring): 524,288 rows of 256 f32
@@ -1293,13 +1399,13 @@ def gather_check(dev):
     ref = gather_dma.gather_rows_reference(table, idx)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    # the public op, as a caller pays it
-    ms = cuda_ms(lambda: gather_dma.gather_rows_dma(table, idx), warmup=3,
-                 reps=20)
-    plain_ms = cuda_ms(lambda: gather_dma.gather_rows_reference(table, idx),
-                       warmup=3, reps=20)
-    lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx), warmup=3,
-                     reps=20)
+    # the public op as a caller pays it, in turns with index_select and
+    # the plain version: medians of 25 calls each
+    t_k, t_lib, t_plain = interleaved_ms((
+        lambda: gather_dma.gather_rows_dma(table, idx),
+        lambda: torch.index_select(table, 0, idx),
+        lambda: gather_dma.gather_rows_reference(table, idx)))
+    ms, lib_ms, plain_ms = (ts[len(ts) // 2] for ts in (t_k, t_lib, t_plain))
     # bytes: each distinct table row the indices name, read once; the
     # indices and the output once
     b_ms, b_by = bound(torch.unique(idx).numel() * GATHER_WIDTH
@@ -1307,8 +1413,9 @@ def gather_check(dev):
                        (0, F32_FLOPS))
     print(f"[points] gather_rows_dma ({GATHER_ROWS} rows of {GATHER_WIDTH} "
           f"f32 from {GATHER_TABLE_ROWS}): bit-equal to its plain version: "
-          f"{'yes' if torch.equal(out, ref) else 'no'}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms; "
+          f"{'yes' if torch.equal(out, ref) else 'no'}; in turns, median "
+          f"(min .. max) of {len(t_k)}: kernel {spread(t_k)}, "
+          f"torch.index_select {spread(t_lib)}, plain {spread(t_plain)}; "
           f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%})")
     if not torch.equal(out, ref):
         fail("gather_rows_dma disagrees with its plain version")
@@ -1385,11 +1492,10 @@ def points_phase(dev, c2w, w=EVAL_FULL, on_card=True, profile=False):
             else:
                 same = {k: digests[k] == TRIPLANE_DIGESTS[k]
                         for k in digests}
-                print(f"[points] the four ray entries' outputs as before the "
-                      f"decoder moved to decoder.cuh (pinned digests, nvcc "
-                      f"{rel}): {same}")
+                print(f"[points] the four ray entries' outputs equal to "
+                      f"the pinned digests (nvcc {rel}): {same}")
                 if not all(same.values()):
-                    fail(f"the decoder move changed a ray entry: {digests}")
+                    fail(f"a ray entry's output changed: {digests}")
             planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
             blk = grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr,
                               plane_view, box, occ, ro, rd)
@@ -1486,6 +1592,121 @@ def points_phase(dev, c2w, w=EVAL_FULL, on_card=True, profile=False):
     return entries
 
 
+def flagship(dev):
+    """bench.py's eval frame at TrainModels widths, weights random from
+    seed 0 -> (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view,
+    box, occ, ro, rd, rcfg)."""
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    from nvsr_tpu_torch.render import RenderConfig
+    gen = torch.Generator().manual_seed(0)
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, gather_table_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    sr_cfg = PlaneSRConfig(in_channels=48, out_channels=48, hidden_size=256,
+                           n_blocks=32, scale_factor=4,
+                           compute_dtype="bfloat16")
+    dec_c = random_decoder(gen, cfg, dev)
+    dec_f = random_decoder(gen, cfg, dev)
+    for dec in (dec_c, dec_f):
+        # a positive density bias, so the random field is not empty and
+        # the frame has content to compare
+        dec["members"][0]["fc_alpha"]["b"].fill_(1.0)
+    sr_params = random_edsr(gen, sr_cfg, dev)
+    planes_lr = (0.03 * torch.randn((3, 48, 200, 200), generator=gen)
+                 ).to(dev)
+    plane_view = (0.03 * torch.randn((48, 32, 32), generator=gen)).to(dev)
+    box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
+                    [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    ro, rd = get_ray_bundle(800, 800, 0.5 * 800 / np.tan(0.3),
+                            torch.as_tensor(camera([3.8, 0.5, 0.7]),
+                                            device=dev))
+    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
+                        ray_block=RAY_BLOCK)
+    return (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view, box,
+            occ, ro, rd, rcfg)
+
+
+def times_of(root):
+    """--times-of ROOT: the decoder's kernels at the main path's shapes
+    (CUDA events, mean of 20 after 3 warm-ups), the row gather and
+    torch.index_select at gather_dma.py's workload (medians of 25 in
+    turns) and the flagship frame (median of 10) for the package under
+    ROOT, with no checks -> one JSON line. The cubic entries run on the
+    bilinear pass's points."""
+    import torch
+    sys.path.insert(0, root)
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
+    from nvsr_tpu_torch.ops import fused_decoder, fused_render, gather_dma
+    from nvsr_tpu_torch.render import render_image
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view, box, occ,
+     ro, rd, rcfg) = flagship(dev)
+    out = {"root": root, "package": kernels.__file__}
+    with torch.no_grad():
+        planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
+        ca, fa = pass_args(cfg, dec_c, dec_f, planes_lr, planes_sr,
+                           plane_view, box, occ, ro, rd)
+        for name, args, so, cubic in (
+                ("coarse", ca, True, False), ("fine", fa, False, False),
+                ("cubic_coarse", ca, True, True),
+                ("cubic_fine", fa, False, True)):
+            out[name] = cuda_ms(lambda: kernels.triplane_render(
+                *args, align_corners=True, avg=True, sigma_only=so,
+                cubic=cubic), warmup=3, reps=20)
+        blk = grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr,
+                          plane_view, box, occ, ro, rd)
+        tab, pk, grids, view = blk["fine"]
+        for name, form in (("grids_fine", "v2"), ("grids_v1", "v1")):
+            out[name] = cuda_ms(lambda: fused_render.tiled_render_chunked(
+                tab, pk, grids, view, align_corners=True, avg=True,
+                sigma_only=False, form=form), warmup=3, reps=20)
+        dec_in = decoder_inputs(blk["fine"])
+        out["fused_decode"] = cuda_ms(lambda: fused_decoder.fused_decode(
+            *dec_in, avg=True), warmup=3, reps=20)
+        del blk, dec_in
+        gen = torch.Generator(device=dev).manual_seed(12)
+        table = torch.randn((GATHER_TABLE_ROWS, GATHER_WIDTH), generator=gen,
+                            device=dev)
+        idx = torch.randint(0, GATHER_TABLE_ROWS, (GATHER_ROWS,),
+                            generator=gen, device=dev, dtype=torch.int32)
+        t_k, t_lib = interleaved_ms((
+            lambda: gather_dma.gather_rows_dma(table, idx),
+            lambda: torch.index_select(table, 0, idx)))
+        out["gather"], out["index_select"] = (t_k[len(t_k) // 2],
+                                              t_lib[len(t_lib) // 2])
+        del table, idx
+        pf_c = tiled_fn(dec_c, cfg, planes_lr, plane_view, box, True)
+        pf_f = tiled_fn(dec_f, cfg, planes_sr, plane_view, box, False)
+        ts = frame_ms(lambda: render_image(
+            pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
+            tile=16).fine.rgb, reps=10)
+        out["frame_median"], out["frame_min"], out["frame_max"] = (
+            ts[len(ts) // 2], ts[0], ts[-1])
+    print(json.dumps(out))
+
+
+def compare(roots):
+    """--times [ROOT ...]: times_of for each ROOT (default: this
+    checkout), each in its own process, in the order given (e.g. parent,
+    change, change, parent)."""
+    for root in roots or [ROOT]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--times-of", os.path.abspath(root)],
+                           capture_output=True, text=True, timeout=900)
+        print(r.stdout.strip().splitlines()[-1] if r.returncode == 0 else
+              f"{root}: exit {r.returncode}\n{r.stdout[-3000:]}"
+              f"{r.stderr[-3000:]}", flush=True)
+
+
 def main(profile=False):
     import numpy as np
     import torch
@@ -1494,10 +1715,8 @@ def main(profile=False):
              "GPU")
     sys.path.insert(0, ROOT)
     from nvsr_tpu_torch import kernels
-    from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
-    from nvsr_tpu_torch.models.triplane import TriplaneConfig
-    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
-    from nvsr_tpu_torch.render import RenderConfig, render_image
+    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
+    from nvsr_tpu_torch.render import render_image
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1521,33 +1740,9 @@ def main(profile=False):
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     # -- flagship setup (bench.py's eval frame) -------------------------
-    gen = torch.Generator().manual_seed(0)
-    cfg = TriplaneConfig(proj_combination="avg",
-                         viewdir_proj_combination="concat_pos",
-                         skip_connect_every=3, gather_table_dtype="bfloat16",
-                         compute_dtype="bfloat16")
-    sr_cfg = PlaneSRConfig(in_channels=48, out_channels=48, hidden_size=256,
-                           n_blocks=32, scale_factor=4,
-                           compute_dtype="bfloat16")
-    dec_c = random_decoder(gen, cfg, dev)
-    dec_f = random_decoder(gen, cfg, dev)
-    for dec in (dec_c, dec_f):
-        # a positive density bias, so the random field is not empty and
-        # the frame has content to compare
-        dec["members"][0]["fc_alpha"]["b"].fill_(1.0)
-    sr_params = random_edsr(gen, sr_cfg, dev)
-    planes_lr = (0.03 * torch.randn((3, 48, 200, 200), generator=gen)
-                 ).to(dev)
-    plane_view = (0.03 * torch.randn((48, 32, 32), generator=gen)).to(dev)
-    box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
-                    [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
-    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view, box, occ,
+     ro, rd, rcfg) = flagship(dev)
     H = W = 800
-    ro, rd = get_ray_bundle(H, W, 0.5 * W / np.tan(0.3),
-                            torch.as_tensor(camera([3.8, 0.5, 0.7]),
-                                            device=dev))
-    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
-                        ray_block=RAY_BLOCK)
 
     with torch.no_grad():
         planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
@@ -1650,5 +1845,12 @@ def main(profile=False):
 
 if __name__ == "__main__":
     # --profile: also profile one HR/SR and one LR training step, and one
-    # frame through each of the points and from-rays entries
-    main(profile="--profile" in sys.argv[1:])
+    # frame through each of the points and from-rays entries; --times
+    # [ROOT ...]: compare builds (see compare), no checks
+    argv = sys.argv[1:]
+    if argv[:1] == ["--times-of"]:
+        times_of(argv[1])
+    elif argv[:1] == ["--times"]:
+        compare(argv[1:])
+    else:
+        main(profile="--profile" in argv)

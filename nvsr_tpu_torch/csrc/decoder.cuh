@@ -3,54 +3,79 @@
 // tap-pair rows): the counterpart of nvsr_tpu/ops/pallas/fused_decoder.py
 // :130 (decode_body).
 //
-// One block of kWarps warps holds kPoints points in shared memory: per
-// point the bf16 features f0, f1, f2, comb and view, each a Part (pointer,
-// row stride, width). decode() runs the density MLP on comb and the rgb
-// MLP on [f0, f1, f2, view] layer by layer: the layer's bf16 weight block
-// (ops/fused_render.py::PackedDecoder) is staged into shared memory and
-// each warp multiplies its 16 points with nvcuda::wmma (bf16, f32
-// accumulate), adds the f32 bias, applies relu and stores bf16 back in
-// place; skip layers re-read the branch input. The heads give rgb (cols
-// 0:3) and sigma (col 3). The sigma-only form skips the rgb branch and
-// puts the fc_rgb bias in the rgb lanes; its sigma is the same code as the
-// full decode's.
+// What it computes, per point: the density MLP on comb and the rgb MLP on
+// [f0, f1, f2, view] (bf16 features), layer by layer with bf16 operands, f32
+// accumulation, an f32 bias added with __fadd_rn, relu, and the activation
+// rounded to bf16; skip layers re-read the branch input. The heads give rgb
+// (lanes 0:3, fc_rgb) and sigma (lane 3, fc_alpha). The sigma-only form
+// skips the rgb branch and puts the fc_rgb bias in the rgb lanes; its sigma
+// is the same code as the full decode's.
+//
+// What bounds it on the H100: the decoder is ~0.26 MFLOP a point (4+4
+// layers of width 128) at 989 TFLOP/s bf16, while its inputs are ~1 KB a
+// point; the kernels that hold it are bound by operations. What the design
+// does about it (hopper-kernels guide §1):
+//   * persistent, warp-specialised blocks: one block per SM walks the
+//     128-point tiles t = blockIdx.x, +gridDim.x, ...; two consumer
+//     warpgroups own 64 points each (one wgmma M tile) and one producer
+//     warp streams the weights;
+//   * the weights, repacked once on the host (ops/fused_render.py
+//     ::pack_decoder, PackedDecoder.ws) into the no-swizzle K-major layout
+//     the wgmma B descriptor reads, are streamed once per 128 points in
+//     contiguous 64-row K-slices of 16 KB through a ring of kRing slices in
+//     shared memory, by 1-D bulk copies completing on mbarriers; the layer
+//     sequence repeats for every tile, so the ring runs on across tiles;
+//   * activations stay in registers: each layer is wgmma.m64n128k16 with
+//     f32 accumulators in registers (64 a thread); the epilogue (bias,
+//     relu, bf16) runs in registers and its packed bf16 pairs are the next
+//     layer's A operand (the register form of wgmma); feature parts (comb,
+//     f0/f1/f2/view, and the skip layers' re-read) are A from shared
+//     memory, accumulated into the same registers;
+//   * the heads (8 KB, resident) are wgmma.m64n16k16 from the registers;
+//     the sigma head runs right after the density branch.
+// setmaxnreg is not used: at one block of kThreads threads per SM every
+// thread may already hold the register count the compiler gives the
+// kernel, and the producer's few registers are not worth a rebalance.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace nvsr {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kPoints = 64;                 // points per block
-constexpr int kWarps = kPoints / 16;        // each warp owns 16 points
-constexpr int kThreads = kWarps * 32;
 constexpr int kWidth = 128;                 // decoder width
-constexpr int kLdAct = kWidth + 8;          // padded strides spread banks
-constexpr int kLdW = kWidth + 8;
 constexpr int kHeadCols = 16;               // rgb cols 0:3, sigma col 3
-constexpr int kLdHead = kHeadCols + 8;
-
-// byte offsets into dynamic shared memory
-struct Layout {
-  int ldf, ldv;
-  unsigned hd, hr, feat, fv, wbuf, stage, taps, wts, total;
-};
+constexpr int kWgPoints = 64;               // points of a consumer warpgroup
+constexpr int kConsumers = 2;               // consumer warpgroups a block
+constexpr int kTilePoints = kConsumers * kWgPoints;
+constexpr int kWgThreads = 128;
+constexpr int kThreads = kConsumers * kWgThreads + 32;  // + producer warp
+constexpr int kStepRows = 16;               // K rows of one wgmma
+constexpr int kStepBytes = kStepRows * kWidth * 2;      // 4 KB
+constexpr int kSliceSteps = 4;              // a ring slice: 64 K rows
+constexpr int kSliceBytes = kSliceSteps * kStepBytes;   // 16 KB
+constexpr int kRing = 4;                    // ring slices in flight
+constexpr int kHeadStepBytes = kStepRows * kHeadCols * 2;
+constexpr int kHeadBytes = 2 * (kWidth / kStepRows) * kHeadStepBytes;
+// a feature part of a warpgroup, [width / 8][8 point groups][8][8] bf16:
+// bytes of one 8-channel group of its 64 points
+constexpr int kKGroupBytes = kWgPoints * 16;
 
 // the packed decoder (ops/fused_render.py::PackedDecoder)
 struct Decoder {
-  const bf16* w; const float* b; const bf16* wh; const float* bh;
+  const bf16* ws;     // weight stream: density slices, then rgb slices
+  const float* b;     // [n_density + n_rgb, 128]
+  const bf16* whs;    // heads fc_rgb, fc_alpha in the B layout
+  const float* bh;    // [16]
   int n_density, n_rgb, skip_every;
+  int d_slices, r_slices;
 };
-
-__host__ __device__ inline unsigned align128(unsigned x) {
-  return (x + 127u) & ~127u;
-}
 
 __host__ __device__ inline bool is_skip(int every, int layer_num) {
   return every > 0 && layer_num > 0 && layer_num % every == 0;
@@ -64,164 +89,313 @@ __host__ __device__ inline int layer_rows(bool rgb, int ln, int every,
   return is_skip(every, ln - 1) ? kWidth + first : kWidth;
 }
 
-// the largest weight block decode() stages
-inline int max_layer_rows(const Decoder& d, bool sigma_only, int cp,
-                          int cvp) {
-  int max_rows = 0;
-  for (int br = 0; br < (sigma_only ? 1 : 2); ++br) {
-    const int nl = br ? d.n_rgb : d.n_density;
-    for (int ln = 0; ln < nl; ++ln) {
-      const int rows = layer_rows(br == 1, ln, d.skip_every, cp, cvp);
-      if (rows > max_rows) max_rows = rows;
-    }
-  }
-  return max_rows;
+// the slices of each branch in the stream (ops/fused_render.py
+// ::pack_stream pads each branch to whole slices)
+inline void set_slices(Decoder& d, int cp, int cvp) {
+  int rows[2] = {0, 0};
+  for (int br = 0; br < 2; ++br)
+    for (int ln = 0; ln < (br ? d.n_rgb : d.n_density); ++ln)
+      rows[br] += layer_rows(br == 1, ln, d.skip_every, cp, cvp);
+  d.d_slices = (rows[0] + kSliceSteps * kStepRows - 1) /
+               (kSliceSteps * kStepRows);
+  d.r_slices = (rows[1] + kSliceSteps * kStepRows - 1) /
+               (kSliceSteps * kStepRows);
 }
 
+__host__ __device__ inline unsigned align128(unsigned x) {
+  return (x + 127u) & ~127u;
+}
+
+// byte offsets into dynamic shared memory
+struct Layout {
+  int cp, cvp;                  // feature part widths (cvp 0: no view)
+  unsigned ring, heads, bars, feat, scratch;
+  unsigned feat_bytes, scratch_bytes, total;
+};
+
 // tap_ints / tap_floats: per (point, plane) scratch of a gather phase
-// (0 for none)
-inline Layout make_layout(int cp, int cvp, int max_rows, int tap_ints,
-                          int tap_floats) {
+inline Layout make_layout(int cp, int cvp, int tap_ints, int tap_floats) {
   Layout L;
-  L.ldf = cp + 8;
-  L.ldv = cvp + 8;
+  L.cp = cp;
+  L.cvp = cvp;
+  L.feat_bytes = align128(kWgPoints * (4 * cp + cvp) * 2);
+  L.scratch_bytes = align128(kWgPoints * 3 * (tap_ints + tap_floats) * 4);
   unsigned off = 0;
-  L.hd = off;    off = align128(off + kPoints * kLdAct * 2);
-  L.hr = off;    off = align128(off + kPoints * kLdAct * 2);
-  L.feat = off;  off = align128(off + 4 * kPoints * L.ldf * 2);
-  L.fv = off;    off = align128(off + kPoints * L.ldv * 2);
-  unsigned wbytes = (unsigned)max_rows * kLdW * 2;
-  unsigned hbytes = 2 * kWidth * kLdHead * 2;
-  L.wbuf = off;  off = align128(off + (wbytes > hbytes ? wbytes : hbytes));
-  L.stage = off; off = align128(off + kWarps * 2 * 256 * 4);
-  L.taps = off;  off = align128(off + kPoints * 3 * tap_ints * 4);
-  L.wts = off;   off = align128(off + kPoints * 3 * tap_floats * 4);
+  L.ring = off;    off += kRing * kSliceBytes;
+  L.heads = off;   off += kHeadBytes;
+  L.bars = off;    off = align128(off + 2 * kRing * 8);
+  L.feat = off;    off += kConsumers * L.feat_bytes;
+  L.scratch = off; off += kConsumers * L.scratch_bytes;
   L.total = off;
   return L;
 }
 
-struct Part { const bf16* ptr; int ld; int width; };
+// a consumer warpgroup's feature parts f0, f1, f2, comb, view
+struct Parts {
+  unsigned char* p[5];
+};
 
-// global [rows, cols] bf16 (row-major, contiguous) -> shared, stride ldd
-__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src,
-                                  int rows, int cols) {
-  const int vecs = cols / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * cols + c));
-  }
+__device__ inline Parts make_parts(unsigned char* feat, int cp) {
+  Parts P;
+  for (int i = 0; i < 5; ++i) P.p[i] = feat + i * kWgPoints * cp * 2;
+  return P;
 }
 
-// out[warp rows, 0:128] = bf16(relu(concat(parts) @ wbuf + bias)); a warp
-// reads and writes only its own 16 rows, so `out` may be an input part.
-__device__ inline void mma_layer(const Part* parts, int nparts,
-                                 const bf16* wbuf, const float* bias,
-                                 bf16* out, float* stage, int warp,
-                                 int lane) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  int kb = 0;
-  for (int p = 0; p < nparts; ++p) {
-    const bf16* a_base = parts[p].ptr + warp * 16 * parts[p].ld;
-    for (int k = 0; k < parts[p].width; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_base + k, parts[p].ld);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, wbuf + (kb + k) * kLdW + j * 16, kLdW);
-        wmma::mma_sync(acc[j], a, bw, acc[j]);
+// channels c8 .. c8 + 7 of point i (of 64) into a feature part
+__device__ inline void put8(unsigned char* part, int i, int c8, uint4 v) {
+  *reinterpret_cast<uint4*>(part + (c8 >> 3) * kKGroupBytes +
+                            (i >> 3) * 128 + (i & 7) * 16) = v;
+}
+
+// A consumer warpgroup's position in the weight ring. Slices are taken in
+// ring order; a slice is released (one arrival on its empty barrier) once
+// the wgmma that read it have completed. A warpgroup holds at most the
+// previous and the current slice, so the producer keeps the others loading.
+struct Ring {
+  uint32_t base, full, empty;
+  int slot, within, held, rel;
+  uint32_t phase;
+  bool open;                    // wgmma issued since the last commit
+
+  __device__ void release(bool leader) {
+    if (leader) mbar_arrive(empty + 8 * rel);
+    rel = (rel + 1) % kRing;
+    --held;
+  }
+
+  // the B descriptor of the next K step of the stream
+  __device__ uint64_t take(bool leader) {
+    if (within == kSliceSteps) {
+      slot = (slot + 1) % kRing;
+      if (slot == 0) phase ^= 1u;
+      within = 0;
+    }
+    if (within == 0) {
+      if (open) {
+        wgmma_commit();
+        open = false;
       }
+      wgmma_wait<1>();          // all but the previous slice's group
+      while (held > 1) release(leader);
+      mbar_wait(full + 8 * slot, phase);
+      ++held;
     }
-    kb += parts[p].width;
+    open = true;
+    // a K step of B (fused_render.to_b_layout): its two 8-row K halves
+    // are 16 column groups x 128 B apart, the column groups 128 B apart
+    const uint32_t a = base + slot * kSliceBytes + (within++) * kStepBytes;
+    return smem_desc(a, (kWidth / 8) * 128, 128);
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const float v = __fadd_rn(stage[e], bias[j * 16 + c]);
-      out[(warp * 16 + r) * kLdAct + j * 16 + c] =
-          __float2bfloat16_rn(fmaxf(v, 0.0f));
-    }
-    __syncwarp();
+
+  // end of a layer: its wgmma complete; at a branch end the rest of the
+  // slice is padding
+  __device__ void layer_end(bool branch_end, bool leader) {
+    wgmma_commit();
+    open = false;
+    wgmma_wait<0>();
+    if (branch_end) within = kSliceSteps;
+    const int keep = within == kSliceSteps ? 0 : 1;
+    while (held > keep) release(leader);
   }
+};
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
 }
 
-// The decoder on the block's kPoints points, called by every thread after
-// the features are in shared memory (f0, f1, f2, comb: cp wide; view: cvp
-// wide, not read by the sigma-only form). hd, hr: [kPoints, kLdAct] bf16
-// activations; wbuf: staged weights; stage: this warp's 512 floats.
-// Returns, in lanes 0..15 of each warp, (r, g, b, sigma) of the warp's
-// point warp * 16 + lane; other lanes' values are not defined.
+// (rgb, sigma) of two points of the warpgroup: rows 16 * warp + lane / 4
+// (lo) and that + 8 (hi); defined in lanes with lane % 4 == 0
+struct HeadOut {
+  float4 lo, hi;
+};
+
+// The decoder on the warpgroup's 64 points, whose feature parts (f0, f1,
+// f2, comb, view; make_parts) are in shared memory from address feat.
 template <bool kSigmaOnly>
-__device__ inline float4 decode(const Decoder& D, Part f0, Part f1, Part f2,
-                                Part comb, Part view, bf16* hd, bf16* hr,
-                                bf16* wbuf, float* stage, int cp, int cvp,
-                                int warp, int lane) {
-  const bf16* wl = D.w;
+__device__ inline HeadOut decode(const Decoder& D, uint32_t feat, int cp,
+                                 int cvp, uint32_t heads, Ring& ring,
+                                 bool leader, int lane) {
+  float acc[64];
+  uint32_t act[32];
+  float sig[8], rgb[8];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sig[i] = rgb[i] = 0.0f;
   int li = 0;
-  Part parts[5];
+#pragma unroll
   for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
-    const bool rgb = br == 1;
-    bf16* x = rgb ? hr : hd;
-    const int nl = rgb ? D.n_rgb : D.n_density;
+    const bool is_rgb = br == 1;
+    const int nl = is_rgb ? D.n_rgb : D.n_density;
     for (int ln = 0; ln < nl; ++ln) {
-      int np = 0;
-      if (ln > 0) parts[np++] = Part{x, kLdAct, kWidth};
-      if (ln == 0 || is_skip(D.skip_every, ln - 1)) {
-        if (rgb) {
-          parts[np++] = f0; parts[np++] = f1; parts[np++] = f2;
-          parts[np++] = view;
-        } else {
-          parts[np++] = comb;
+      wgmma_fence();
+      int scale = 0;
+      if (ln > 0) {
+#pragma unroll
+        for (int kk = 0; kk < kWidth / kStepRows; ++kk) {
+          wgmma_128_rs(acc, act + 4 * kk, ring.take(leader), scale);
+          scale = 1;
         }
       }
-      const int rows = layer_rows(rgb, ln, D.skip_every, cp, cvp);
-      stage_rows(wbuf, kLdW, wl, rows, kWidth);
-      __syncthreads();
-      mma_layer(parts, np, wbuf, D.b + li * kWidth, x, stage, warp, lane);
-      __syncthreads();
-      wl += (size_t)rows * kWidth;
+      if (ln == 0 || is_skip(D.skip_every, ln - 1)) {
+        // density: comb; rgb: f0, f1, f2, view
+        for (int q = 0; q < (is_rgb ? 4 : 1); ++q) {
+          const int p = is_rgb ? (q == 3 ? 4 : q) : 3;
+          const int steps = (p == 4 ? cvp : cp) / kStepRows;
+          for (int s = 0; s < steps; ++s) {
+            const uint32_t a =
+                feat + (p * kWgPoints * cp + s * kStepRows * kWgPoints) * 2;
+            const uint64_t da = smem_desc(a, kKGroupBytes, 128);
+            wgmma_128_ss(acc, da, ring.take(leader), scale);
+            scale = 1;
+          }
+        }
+      }
+      ring.layer_end(ln == nl - 1, leader);
+      // epilogue: act = bf16(relu(acc + bias)); acc[4j + e] is row
+      // lane / 4 (+8 for e >= 2), col 8j + 2 (lane % 4) + (e & 1)
+      const float* bias = D.b + li * kWidth + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < kWidth / 8; ++j) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
+        act[2 * j] = pack_bf16(fmaxf(__fadd_rn(acc[4 * j], bb.x), 0.0f),
+                               fmaxf(__fadd_rn(acc[4 * j + 1], bb.y), 0.0f));
+        act[2 * j + 1] =
+            pack_bf16(fmaxf(__fadd_rn(acc[4 * j + 2], bb.x), 0.0f),
+                      fmaxf(__fadd_rn(acc[4 * j + 3], bb.y), 0.0f));
+      }
       ++li;
     }
-  }
-
-  // heads: rows [0, 128) of the staged block are fc_rgb, [128, 256) fc_alpha
-  stage_rows(wbuf, kLdHead, D.wh, 2 * kWidth, kHeadCols);
-  __syncthreads();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_r;
-  wmma::fill_fragment(acc_s, 0.0f);
-  wmma::fill_fragment(acc_r, 0.0f);
+    // the branch's head: fc_alpha after the density branch, fc_rgb after
+    // the rgb branch (B at heads + head * 4 KB, 512 B a K step)
+    const uint32_t hb = heads + (is_rgb ? 0 : kHeadBytes / 2);
+    wgmma_fence();
 #pragma unroll
-  for (int k = 0; k < kWidth; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-    wmma::load_matrix_sync(a, hd + warp * 16 * kLdAct + k, kLdAct);
-    wmma::load_matrix_sync(bw, wbuf + (kWidth + k) * kLdHead, kLdHead);
-    wmma::mma_sync(acc_s, a, bw, acc_s);
-    if (!kSigmaOnly) {
-      wmma::load_matrix_sync(a, hr + warp * 16 * kLdAct + k, kLdAct);
-      wmma::load_matrix_sync(bw, wbuf + k * kLdHead, kLdHead);
-      wmma::mma_sync(acc_r, a, bw, acc_r);
+    for (int kk = 0; kk < kWidth / kStepRows; ++kk) {
+      const uint64_t db = smem_desc(hb + kk * kHeadStepBytes, 2 * 128, 128);
+      if (is_rgb)
+        wgmma_16_rs(rgb, act + 4 * kk, db, kk > 0);
+      else
+        wgmma_16_rs(sig, act + 4 * kk, db, kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
   }
-  wmma::store_matrix_sync(stage, acc_s, 16, wmma::mem_row_major);
-  wmma::store_matrix_sync(stage + 256, acc_r, 16, wmma::mem_row_major);
-  __syncwarp();
-  float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (lane < 16) {
-    const float* s = stage + lane * 16;
-    const float* r = stage + 256 + lane * 16;
-    o.x = kSigmaOnly ? D.bh[0] : __fadd_rn(r[0], D.bh[0]);
-    o.y = kSigmaOnly ? D.bh[1] : __fadd_rn(r[1], D.bh[1]);
-    o.z = kSigmaOnly ? D.bh[2] : __fadd_rn(r[2], D.bh[2]);
-    o.w = __fadd_rn(s[3], D.bh[3]);
+  // col c of the head is in lane 4 * row + c / 2: sigma (col 3) and blue
+  // (col 2) come from the next lane
+  const float s_lo = __shfl_down_sync(0xffffffffu, sig[1], 1);
+  const float s_hi = __shfl_down_sync(0xffffffffu, sig[3], 1);
+  const float b_lo = __shfl_down_sync(0xffffffffu, rgb[0], 1);
+  const float b_hi = __shfl_down_sync(0xffffffffu, rgb[2], 1);
+  HeadOut o;
+  if (kSigmaOnly) {
+    o.lo = make_float4(D.bh[0], D.bh[1], D.bh[2], __fadd_rn(s_lo, D.bh[3]));
+    o.hi = make_float4(D.bh[0], D.bh[1], D.bh[2], __fadd_rn(s_hi, D.bh[3]));
+  } else {
+    o.lo = make_float4(__fadd_rn(rgb[0], D.bh[0]), __fadd_rn(rgb[1], D.bh[1]),
+                       __fadd_rn(b_lo, D.bh[2]), __fadd_rn(s_lo, D.bh[3]));
+    o.hi = make_float4(__fadd_rn(rgb[2], D.bh[0]), __fadd_rn(rgb[3], D.bh[1]),
+                       __fadd_rn(b_hi, D.bh[2]), __fadd_rn(s_hi, D.bh[3]));
   }
   return o;
+}
+
+// The persistent kernel body. Job gives the points' features and takes
+// their outputs:
+//   job.gather(wt, base, parts, scratch, bar): the 128 threads (wt) of a
+//     consumer warpgroup write the bf16 features of points base .. base +
+//     63 (zeros past the end) into `parts`; it may sync the warpgroup with
+//     named_sync(bar, kWgThreads);
+//   job.store(n, o): (r, g, b, sigma) of point n < N.
+template <bool kSigmaOnly, class Job>
+__device__ inline void run_decoder(const Job& job, const Decoder& D,
+                                   const Layout& L, long long N,
+                                   unsigned char* smem) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full = sbase + L.bars, empty = full + 8 * kRing;
+  const long long tiles = (N + kTilePoints - 1) / kTilePoints;
+  const int slices = D.d_slices + (kSigmaOnly ? 0 : D.r_slices);
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    mbar_init_fence();
+  }
+  // the heads, already in the B layout, stay resident
+  for (int i = tid; i < kHeadBytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem + L.heads)[i] =
+        __ldg(reinterpret_cast<const uint4*>(D.whs) + i);
+  fence_async_smem();
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // the producer: the stream's slices, once per tile, into the ring
+    if (lane == 0) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(D.ws);
+      int slot = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int i = 0; i < slices; ++i) {
+          mbar_wait(empty + 8 * slot, phase ^ 1u);
+          mbar_arrive_expect_tx(full + 8 * slot, kSliceBytes);
+          bulk_load(sbase + L.ring + slot * kSliceBytes,
+                    src + (size_t)i * kSliceBytes, kSliceBytes,
+                    full + 8 * slot);
+          if (++slot == kRing) {
+            slot = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    const int wg = warp >> 2, wt = tid & (kWgThreads - 1);
+    unsigned char* feat = smem + L.feat + wg * L.feat_bytes;
+    const Parts parts = make_parts(feat, L.cp);
+    unsigned char* scratch = smem + L.scratch + wg * L.scratch_bytes;
+    Ring ring = {sbase + L.ring, full, empty, 0, 0, 0, 0, 0u, false};
+    const bool leader = wt == 0;
+    const int bar = 1 + wg;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const long long base = t * kTilePoints + wg * kWgPoints;
+      job.gather(wt, base, parts, scratch, bar);
+      fence_async_smem();
+      named_sync(bar, kWgThreads);
+      const HeadOut o = decode<kSigmaOnly>(D, smem_u32(feat), L.cp, L.cvp,
+                                           sbase + L.heads, ring, leader,
+                                           lane);
+      if ((lane & 3) == 0) {
+        const long long n = base + (warp & 3) * 16 + (lane >> 2);
+        if (n < N) job.store(n, o.lo);
+        if (n + 8 < N) job.store(n + 8, o.hi);
+      }
+    }
+  }
+}
+
+// Launch `kernel` (a __global__ taking (params, layout)) persistently:
+// min(SMs, tiles) blocks of kThreads with the layout's dynamic shared
+// memory. Returns a cudaError_t.
+template <class Kernel, class Params>
+inline int launch_persistent(Kernel kernel, const Params& p, const Layout& L,
+                             long long N, cudaStream_t stream) {
+  const long long tiles = (N + kTilePoints - 1) / kTilePoints;
+  if (tiles == 0) return (int)cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<blocks, kThreads, L.total, stream>>>(p, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace nvsr

@@ -20,11 +20,12 @@
 // What bounds it on the H100: per point it reads 3 x 256 B of tap pairs,
 // 12 B of ty and 256 B of f32 view and writes 32 B (~1 KB), against the
 // decoder's ~0.26 MFLOP: at 3.35 TB/s and 989 TFLOP/s bf16 the bytes are
-// the larger bound, by a little. The simple design: one block of 4 warps
-// takes 64 consecutive points; one thread per (point, 8 channels) loads
-// each plane's two 16-byte halves, lerps and writes the bf16 features to
-// shared memory; then the block runs the shared decoder, which restages
-// every layer's weights from L2 (as triplane_render.cu does).
+// the larger bound counted per byte of the rows, but the kernel reads only
+// the cp lanes of each half, so the decoder's operations bound it. The
+// design is decoder.cuh's persistent kernel: per consumer warpgroup and
+// 64 points, one thread per (point, 8 channels) loads each plane's two
+// 16-byte halves, lerps and writes the bf16 features in the wgmma A
+// layout into shared memory; then the warpgroup runs the decoder.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,101 +47,91 @@ struct Params {
   float* out;
 };
 
-__global__ void __launch_bounds__(kThreads)
-fused_decode_kernel(const Params P, const Layout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* hd = reinterpret_cast<bf16*>(smem + L.hd);
-  bf16* hr = reinterpret_cast<bf16*>(smem + L.hr);
-  bf16* feat = reinterpret_cast<bf16*>(smem + L.feat);  // f0, f1, f2, comb
-  bf16* fv = reinterpret_cast<bf16*>(smem + L.fv);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + L.wbuf);
+// the features of one consumer warpgroup's 64 points (decoder.cuh's Job)
+struct Lerp {
+  const Params& P;              // the kernel's __grid_constant__ parameter
+  long long N;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * 512;
-  const long long N = P.N;
-  const long long base = (long long)blockIdx.x * kPoints;
-  const int cp = P.cp, ldf = L.ldf;
+  __device__ void store(long long n, float4 o) const {
+    float4* dst = reinterpret_cast<float4*>(P.out + n * kOutLanes);
+    dst[0] = o;
+    dst[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
 
-  // phase 1: y-lerped features of 8 channels of one point per item
-  const int chunks = cp / 8;
-  for (int item = tid; item < kPoints * chunks; item += kThreads) {
-    const int i = item / chunks, c8 = (item % chunks) * 8;
-    const long long n = base + i;
-    float comb[8];
+  __device__ void gather(int wt, long long base, const Parts& parts,
+                         unsigned char*, int) const {
+    // y-lerped features of 8 channels of one point per item
+    const int chunks = P.cp / 8;
+    for (int item = wt; item < kWgPoints * chunks; item += kWgThreads) {
+      const int i = item / chunks, c8 = (item % chunks) * 8;
+      const long long n = base + i;
+      float comb[8];
 #pragma unroll
-    for (int pl = 0; pl < 3; ++pl) {
-      uint4 q[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-      float ty = 0.0f;
+      for (int pl = 0; pl < 3; ++pl) {
+        uint4 q[2] = {make_uint4(0u, 0u, 0u, 0u),
+                      make_uint4(0u, 0u, 0u, 0u)};
+        float ty = 0.0f;
+        if (n < N) {
+          const bf16* row = P.rows + ((size_t)pl * N + n) * (2 * kHalf);
+          q[0] = __ldg(reinterpret_cast<const uint4*>(row + c8));
+          q[1] = __ldg(reinterpret_cast<const uint4*>(row + kHalf + c8));
+          ty = __ldg(P.ty + pl * N + n);
+        }
+        const bf16* v = reinterpret_cast<const bf16*>(q);  // top, bottom
+        __align__(16) bf16 fo[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float f = __fadd_rn(
+              __fmul_rn(__bfloat162float(v[e]), __fsub_rn(1.0f, ty)),
+              __fmul_rn(__bfloat162float(v[8 + e]), ty));
+          comb[e] = pl == 0 ? f : __fadd_rn(comb[e], f);
+          fo[e] = __float2bfloat16_rn(f);
+        }
+        put8(parts.p[pl], i, c8, *reinterpret_cast<const uint4*>(fo));
+      }
+      __align__(16) bf16 co[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        co[e] =
+            __float2bfloat16_rn(P.avg ? __fdiv_rn(comb[e], 3.0f) : comb[e]);
+      put8(parts.p[3], i, c8, *reinterpret_cast<const uint4*>(co));
+    }
+    // the f32 view row, rounded to bf16
+    const int vch = P.cvp / 8;
+    for (int item = wt; item < kWgPoints * vch; item += kWgThreads) {
+      const int i = item / vch, c8 = (item % vch) * 8;
+      const long long n = base + i;
+      __align__(16) bf16 vo[8];
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
       if (n < N) {
-        const bf16* row = P.rows + ((size_t)pl * N + n) * (2 * kHalf);
-        q[0] = __ldg(reinterpret_cast<const uint4*>(row + c8));
-        q[1] = __ldg(reinterpret_cast<const uint4*>(row + kHalf + c8));
-        ty = __ldg(P.ty + pl * N + n);
+        const float4* src =
+            reinterpret_cast<const float4*>(P.view + n * kHalf + c8);
+        a = __ldg(src);
+        b = __ldg(src + 1);
       }
-      const bf16* v = reinterpret_cast<const bf16*>(q);  // top 0:8, bot 8:16
-      __align__(16) bf16 fo[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float f =
-            __fadd_rn(__fmul_rn(__bfloat162float(v[e]), __fsub_rn(1.0f, ty)),
-                      __fmul_rn(__bfloat162float(v[8 + e]), ty));
-        comb[e] = pl == 0 ? f : __fadd_rn(comb[e], f);
-        fo[e] = __float2bfloat16_rn(f);
-      }
-      *reinterpret_cast<uint4*>(feat + (pl * kPoints + i) * ldf + c8) =
-          *reinterpret_cast<const uint4*>(fo);
+      vo[0] = __float2bfloat16_rn(a.x); vo[1] = __float2bfloat16_rn(a.y);
+      vo[2] = __float2bfloat16_rn(a.z); vo[3] = __float2bfloat16_rn(a.w);
+      vo[4] = __float2bfloat16_rn(b.x); vo[5] = __float2bfloat16_rn(b.y);
+      vo[6] = __float2bfloat16_rn(b.z); vo[7] = __float2bfloat16_rn(b.w);
+      put8(parts.p[4], i, c8, *reinterpret_cast<const uint4*>(vo));
     }
-    __align__(16) bf16 co[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      co[e] = __float2bfloat16_rn(P.avg ? __fdiv_rn(comb[e], 3.0f) : comb[e]);
-    *reinterpret_cast<uint4*>(feat + (3 * kPoints + i) * ldf + c8) =
-        *reinterpret_cast<const uint4*>(co);
   }
-  // the f32 view row, rounded to bf16
-  const int vch = P.cvp / 8;
-  for (int item = tid; item < kPoints * vch; item += kThreads) {
-    const int i = item / vch, c8 = (item % vch) * 8;
-    const long long n = base + i;
-    __align__(16) bf16 vo[8];
-    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
-    if (n < N) {
-      const float4* src =
-          reinterpret_cast<const float4*>(P.view + n * kHalf + c8);
-      a = __ldg(src);
-      b = __ldg(src + 1);
-    }
-    vo[0] = __float2bfloat16_rn(a.x); vo[1] = __float2bfloat16_rn(a.y);
-    vo[2] = __float2bfloat16_rn(a.z); vo[3] = __float2bfloat16_rn(a.w);
-    vo[4] = __float2bfloat16_rn(b.x); vo[5] = __float2bfloat16_rn(b.y);
-    vo[6] = __float2bfloat16_rn(b.z); vo[7] = __float2bfloat16_rn(b.w);
-    *reinterpret_cast<uint4*>(fv + i * L.ldv + c8) =
-        *reinterpret_cast<const uint4*>(vo);
-  }
-  __syncthreads();
+};
 
-  // phase 2: the decoder
-  const Part f0 = {feat, ldf, cp}, f1 = {feat + kPoints * ldf, ldf, cp},
-             f2 = {feat + 2 * kPoints * ldf, ldf, cp},
-             comb = {feat + 3 * kPoints * ldf, ldf, cp},
-             view = {fv, L.ldv, P.cvp};
-  const float4 o = decode<false>(P.dec, f0, f1, f2, comb, view, hd, hr,
-                                 wbuf, stage, cp, P.cvp, warp, lane);
-  if (lane < 16) {
-    const long long n = base + warp * 16 + lane;
-    if (n < N) {
-      float4* dst = reinterpret_cast<float4*>(P.out + n * kOutLanes);
-      dst[0] = o;
-      dst[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  }
+__global__ void __launch_bounds__(kThreads, 1)
+fused_decode_kernel(const __grid_constant__ Params P,
+                    const __grid_constant__ Layout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Lerp job{P, (long long)P.N};
+  run_decoder<false>(job, P.dec, L, job.N, smem);
 }
 
 }  // namespace
 
 // C interface (ctypes). Returns a cudaError_t: 0 when the launch was
 // accepted. rows [3N, 128] bf16, ty [3N] f32, view [N, 64] f32, out
-// [N, 8] f32; w, b, wh, bh: the packed decoder.
+// [N, 8] f32; w, b, wh, bh: the packed decoder (PackedDecoder.ws, b,
+// whs, bh).
 extern "C" int fused_decode(const void* rows, const float* ty,
                             const float* view, int N, int cp, int cvp,
                             const void* w, const float* b, const void* wh,
@@ -150,20 +141,13 @@ extern "C" int fused_decode(const void* rows, const float* ty,
   Params p;
   p.rows = static_cast<const bf16*>(rows); p.ty = ty; p.view = view;
   p.N = N; p.cp = cp; p.cvp = cvp;
-  p.dec.w = static_cast<const bf16*>(w); p.dec.b = b;
-  p.dec.wh = static_cast<const bf16*>(wh); p.dec.bh = bh;
+  p.dec.ws = static_cast<const bf16*>(w); p.dec.b = b;
+  p.dec.whs = static_cast<const bf16*>(wh); p.dec.bh = bh;
   p.dec.n_density = n_density; p.dec.n_rgb = n_rgb;
   p.dec.skip_every = skip_every;
   p.avg = avg; p.out = out;
-  const Layout L = make_layout(cp, cvp, max_layer_rows(p.dec, false, cp, cvp),
-                               0, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = ((long long)N + kPoints - 1) / kPoints;
-  if (blocks > 0)
-    fused_decode_kernel<<<(unsigned)blocks, kThreads, L.total,
-                          static_cast<cudaStream_t>(stream)>>>(p, L);
-  return (int)cudaGetLastError();
+  set_slices(p.dec, cp, cvp);
+  return launch_persistent(fused_decode_kernel, p,
+                           make_layout(cp, cvp, 0, 0), N,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -53,25 +53,22 @@
 // neither alone is the wall; what limits this simple design is latency
 // and shared-memory traffic.
 //
-// What the simple design does about it. The TPU design (vertical-pair
-// tables, per-chunk region DMAs, hat-weight gather matmuls, region clamps
-// and their overflow repair) exists because Mosaic cannot gather in VMEM;
-// here a point's taps are plain 16-byte loads, so none of it is carried
-// over. One block of 4 warps takes 64 consecutive points:
+// What the design does about it. The TPU design (vertical-pair tables,
+// per-chunk region DMAs, hat-weight gather matmuls, region clamps and their
+// overflow repair) exists because Mosaic cannot gather in VMEM; here a
+// point's taps are plain 16-byte loads, so none of it is carried over.
+// The kernel is decoder.cuh's persistent, warp-specialised block; each
+// consumer warpgroup takes 64 points of a 128-point tile:
 //   phase 0: one thread per (point, plane) computes the tap offsets and
-//            weights into shared memory (bicubic: 4 row and 4 col offsets,
-//            16 weights);
+//            weights into the warpgroup's shared scratch (bicubic: 4 row
+//            and 4 col offsets, 16 weights);
 //   phase 1: one thread per (point, 8 channels) loads the 12 taps (3 planes
 //            x 4; bicubic 48, row by row) as 16-byte vectors and writes f0,
-//            f1, f2 and comb (bf16) to shared memory, plus the ray's view
-//            row;
-//   phase 2: the decoder of decoder.cuh: layer by layer, the layer's bf16
-//            weight block is staged into shared memory and each warp
-//            multiplies its 16 points with nvcuda::wmma (bf16, f32
-//            accumulate), adds the bias, applies relu and stores bf16 back
-//            in place.
-// Weights are re-read from L2 by every block; wgmma, TMA, persistence and
-// keeping weights resident are left for later work.
+//            f1, f2 and comb (bf16), plus the view row, straight into the
+//            wgmma A layout in shared memory;
+//   then the decoder: wgmma with the activations in registers, the weights
+//            streamed through a ring of shared-memory slices (decoder.cuh).
+// The next tile's gather does not overlap this tile's decode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,217 +110,207 @@ __device__ inline int cubic_row(int r) {
   return r == 2 ? -1 : (r == 3 ? 2 : r);
 }
 
+// The gather of one consumer warpgroup's 64 points (decoder.cuh's Job)
 template <bool kSigmaOnly, bool kCubic, bool kGrids, bool kV1>
-__global__ void __launch_bounds__(kThreads)
-triplane_render_kernel(const Params P, const Layout L) {
+struct Gather {
+  static constexpr int kInts = TapShape<kCubic>::kInts;
+  static constexpr int kFloats = TapShape<kCubic>::kFloats;
+  const Params& P;              // the kernel's __grid_constant__ parameter
+  long long N;
+
+  __device__ void store(long long n, float4 o) const {
+    *reinterpret_cast<float4*>(P.out + n * 4) = o;
+  }
+
+  __device__ void gather(int wt, long long base, const Parts& parts,
+                         unsigned char* scratch, int bar) const {
+    int* taps = reinterpret_cast<int*>(scratch);
+    float* wts = reinterpret_cast<float*>(scratch) + kWgPoints * 3 * kInts;
+    const int cp = P.cp;
+    const bool ac = P.align_corners != 0;
+
+    // phase 0: tap offsets (cells of the [3*H*W, Cp] table) and weights
+    for (int item = wt; item < kWgPoints * 3; item += kWgThreads) {
+      const int i = item / 3, pl = item % 3;
+      const long long n = base + i;
+      int* t = taps + item * kInts;
+      float* wv = wts + item * kFloats;
+      for (int k = 0; k < kInts; ++k) t[k] = 0;
+      for (int k = 0; k < kFloats; ++k) wv[k] = 0.0f;
+      if (n < N) {
+        float gx, gy;
+        if (kGrids) {
+          const float2 g =
+              reinterpret_cast<const float2*>(P.grids)[pl * N + n];
+          gx = g.x;
+          gy = g.y;
+        } else {
+          const long long r = n / P.S;
+          const float zz = P.z[n];
+          float nc[3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float pc = __fadd_rn(P.origins[r * 3 + c],
+                                       __fmul_rn(P.dirs[r * 3 + c], zz));
+            nc[c] = __fsub_rn(
+                __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(pc, P.geom.lo[c])),
+                          __fsub_rn(P.geom.hi[c], P.geom.lo[c])),
+                1.0f);
+          }
+          const float (*rot)[2] = P.geom.rot[pl];
+          gx = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][0]),
+                                   __fmul_rn(nc[1], rot[1][0])),
+                         __fmul_rn(nc[2], rot[2][0]));
+          gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
+                                   __fmul_rn(nc[1], rot[1][1])),
+                         __fmul_rn(nc[2], rot[2][1]));
+        }
+        if (kCubic) {
+          // t[0:4] = row starts (cells) in cubic_row order, t[4:8] = cols
+          // x0-1 .. x0+2; wv[r * 4 + c] = bf16(wx_c * wy_r)
+          int x0, y0;
+          float tx, ty;
+          cubic_coord(unnormalize(gx, P.W, ac), P.W, &x0, &tx);
+          cubic_coord(unnormalize(gy, P.H, ac), P.H, &y0, &ty);
+          float wx[4];
+          for (int c = 0; c < 4; ++c) {
+            wx[c] = cubic_weight(__fsub_rn((float)(c - 1), tx));
+            t[4 + c] = min(max(x0 - 1 + c, 0), P.W - 1);
+          }
+          for (int r = 0; r < 4; ++r) {
+            const int dy = cubic_row(r);
+            t[r] = (pl * P.H + min(max(y0 + dy, 0), P.H - 1)) * P.W;
+            const float wy = cubic_weight(__fsub_rn((float)dy, ty));
+            for (int c = 0; c < 4; ++c)
+              wv[r * 4 + c] = bf16r(__fmul_rn(wx[c], wy));
+          }
+        } else {
+          const float x = fminf(fmaxf(unnormalize(gx, P.W, ac), 0.0f),
+                                (float)(P.W - 1));
+          const float y = fminf(fmaxf(unnormalize(gy, P.H, ac), 0.0f),
+                                (float)(P.H - 1));
+          const float x0f = floorf(x), y0f = floorf(y);
+          const float tx = __fsub_rn(x, x0f);
+          const int x0 = min((int)x0f, P.W - 1), y0 = min((int)y0f, P.H - 1);
+          const int x1 = min(x0 + 1, P.W - 1), y1 = min(y0 + 1, P.H - 1);
+          const int row0 = (pl * P.H + y0) * P.W;
+          const int row1 = (pl * P.H + y1) * P.W;
+          t[0] = row0 + x0; t[1] = row0 + x1;
+          t[2] = row1 + x0; t[3] = row1 + x1;
+          wv[0] = bf16r(__fsub_rn(1.0f, tx));
+          wv[1] = bf16r(tx);
+          wv[2] = __fsub_rn(y, y0f);
+        }
+      }
+    }
+    named_sync(bar, kWgThreads);
+
+    // phase 1: features of 8 channels of one point per item
+    const int chunks = cp / 8;
+    for (int item = wt; item < kWgPoints * chunks; item += kWgThreads) {
+      const int i = item / chunks, c8 = (item % chunks) * 8;
+      float comb[8];
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl) {
+        const int* t = taps + (i * 3 + pl) * kInts;
+        const float* wv = wts + (i * 3 + pl) * kFloats;
+        float f[8];
+        if (kCubic) {
+          for (int r = 0; r < 4; ++r) {
+            uint4 q[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              q[c] = __ldg(reinterpret_cast<const uint4*>(
+                  P.table + ((size_t)t[r] + t[4 + c]) * cp + c8));
+            const bf16* v = reinterpret_cast<const bf16*>(q);  // [c * 8 + e]
+            const float* w = wv + r * 4;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              float row = __fmul_rn(w[0], __bfloat162float(v[e]));
+#pragma unroll
+              for (int c = 1; c < 4; ++c)
+                row = __fadd_rn(
+                    row, __fmul_rn(w[c], __bfloat162float(v[c * 8 + e])));
+              f[e] = r == 0 ? row : __fadd_rn(f[e], row);
+            }
+          }
+        } else {
+          const float w0 = wv[0], w1 = wv[1], ty = wv[2];
+          uint4 q[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            q[k] = __ldg(reinterpret_cast<const uint4*>(
+                P.table + (size_t)t[k] * cp + c8));
+          const bf16* v = reinterpret_cast<const bf16*>(q);  // [k * 8 + e]
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float top =
+                __fadd_rn(__fmul_rn(w0, __bfloat162float(v[e])),
+                          __fmul_rn(w1, __bfloat162float(v[8 + e])));
+            float bot =
+                __fadd_rn(__fmul_rn(w0, __bfloat162float(v[16 + e])),
+                          __fmul_rn(w1, __bfloat162float(v[24 + e])));
+            if (kV1) {
+              top = bf16r(top);
+              bot = bf16r(bot);
+              f[e] = __fadd_rn(__fmul_rn(top, __fsub_rn(1.0f, ty)),
+                               __fmul_rn(bot, ty));
+            } else {
+              f[e] = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
+            }
+          }
+        }
+        __align__(16) bf16 fo[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          comb[e] = pl == 0 ? f[e] : __fadd_rn(comb[e], f[e]);
+          fo[e] = __float2bfloat16_rn(f[e]);
+        }
+        put8(parts.p[pl], i, c8, *reinterpret_cast<const uint4*>(fo));
+      }
+      __align__(16) bf16 co[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        co[e] =
+            __float2bfloat16_rn(P.avg ? __fdiv_rn(comb[e], 3.0f) : comb[e]);
+      put8(parts.p[3], i, c8, *reinterpret_cast<const uint4*>(co));
+    }
+    if (!kSigmaOnly) {
+      const int vch = P.cvp / 8;
+      for (int item = wt; item < kWgPoints * vch; item += kWgThreads) {
+        const int i = item / vch, c8 = (item % vch) * 8;
+        const long long n = base + i;
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (n < N)
+          q = __ldg(reinterpret_cast<const uint4*>(
+              P.view + (size_t)(n / P.S) * P.cvp + c8));
+        put8(parts.p[4], i, c8, q);
+      }
+    }
+  }
+};
+
+template <bool kSigmaOnly, bool kCubic, bool kGrids, bool kV1>
+__global__ void __launch_bounds__(kThreads, 1)
+triplane_render_kernel(const __grid_constant__ Params P,
+                       const __grid_constant__ Layout L) {
   static_assert(!(kGrids && kCubic), "the grids entries are bilinear");
   static_assert(!kV1 || (kGrids && !kSigmaOnly),
                 "v1 is a full-decode grids entry");
-  constexpr int kInts = TapShape<kCubic>::kInts;
-  constexpr int kFloats = TapShape<kCubic>::kFloats;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* hd = reinterpret_cast<bf16*>(smem + L.hd);
-  bf16* hr = reinterpret_cast<bf16*>(smem + L.hr);
-  bf16* feat = reinterpret_cast<bf16*>(smem + L.feat);  // f0, f1, f2, comb
-  bf16* fv = reinterpret_cast<bf16*>(smem + L.fv);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + L.wbuf);
-  int* taps = reinterpret_cast<int*>(smem + L.taps);
-  float* wts = reinterpret_cast<float*>(smem + L.wts);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * 512;
-  const long long N = (long long)P.R * P.S;
-  const long long base = (long long)blockIdx.x * kPoints;
-  const int cp = P.cp, ldf = L.ldf;
-  const bool ac = P.align_corners != 0;
-
-  // phase 0: tap offsets (cells of the [3*H*W, Cp] table) and weights
-  for (int item = tid; item < kPoints * 3; item += kThreads) {
-    const int i = item / 3, pl = item % 3;
-    const long long n = base + i;
-    int* t = taps + item * kInts;
-    float* wv = wts + item * kFloats;
-    for (int k = 0; k < kInts; ++k) t[k] = 0;
-    for (int k = 0; k < kFloats; ++k) wv[k] = 0.0f;
-    if (n < N) {
-      float gx, gy;
-      if (kGrids) {
-        const float2 g = reinterpret_cast<const float2*>(P.grids)[pl * N + n];
-        gx = g.x;
-        gy = g.y;
-      } else {
-        const long long r = n / P.S;
-        const float zz = P.z[n];
-        float nc[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float pc = __fadd_rn(P.origins[r * 3 + c],
-                                     __fmul_rn(P.dirs[r * 3 + c], zz));
-          nc[c] = __fsub_rn(
-              __fdiv_rn(__fmul_rn(2.0f, __fsub_rn(pc, P.geom.lo[c])),
-                        __fsub_rn(P.geom.hi[c], P.geom.lo[c])),
-              1.0f);
-        }
-        const float (*rot)[2] = P.geom.rot[pl];
-        gx = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][0]),
-                                 __fmul_rn(nc[1], rot[1][0])),
-                       __fmul_rn(nc[2], rot[2][0]));
-        gy = __fadd_rn(__fadd_rn(__fmul_rn(nc[0], rot[0][1]),
-                                 __fmul_rn(nc[1], rot[1][1])),
-                       __fmul_rn(nc[2], rot[2][1]));
-      }
-      if (kCubic) {
-        // t[0:4] = row starts (cells) in cubic_row order, t[4:8] = cols
-        // x0-1 .. x0+2; wv[r * 4 + c] = bf16(wx_c * wy_r)
-        int x0, y0;
-        float tx, ty;
-        cubic_coord(unnormalize(gx, P.W, ac), P.W, &x0, &tx);
-        cubic_coord(unnormalize(gy, P.H, ac), P.H, &y0, &ty);
-        float wx[4];
-        for (int c = 0; c < 4; ++c) {
-          wx[c] = cubic_weight(__fsub_rn((float)(c - 1), tx));
-          t[4 + c] = min(max(x0 - 1 + c, 0), P.W - 1);
-        }
-        for (int r = 0; r < 4; ++r) {
-          const int dy = cubic_row(r);
-          t[r] = (pl * P.H + min(max(y0 + dy, 0), P.H - 1)) * P.W;
-          const float wy = cubic_weight(__fsub_rn((float)dy, ty));
-          for (int c = 0; c < 4; ++c)
-            wv[r * 4 + c] = bf16r(__fmul_rn(wx[c], wy));
-        }
-      } else {
-        const float x = fminf(fmaxf(unnormalize(gx, P.W, ac), 0.0f),
-                              (float)(P.W - 1));
-        const float y = fminf(fmaxf(unnormalize(gy, P.H, ac), 0.0f),
-                              (float)(P.H - 1));
-        const float x0f = floorf(x), y0f = floorf(y);
-        const float tx = __fsub_rn(x, x0f);
-        const int x0 = min((int)x0f, P.W - 1), y0 = min((int)y0f, P.H - 1);
-        const int x1 = min(x0 + 1, P.W - 1), y1 = min(y0 + 1, P.H - 1);
-        const int row0 = (pl * P.H + y0) * P.W, row1 = (pl * P.H + y1) * P.W;
-        t[0] = row0 + x0; t[1] = row0 + x1; t[2] = row1 + x0; t[3] = row1 + x1;
-        wv[0] = bf16r(__fsub_rn(1.0f, tx));
-        wv[1] = bf16r(tx);
-        wv[2] = __fsub_rn(y, y0f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // phase 1: features of 8 channels of one point per item
-  const int chunks = cp / 8;
-  for (int item = tid; item < kPoints * chunks; item += kThreads) {
-    const int i = item / chunks, c8 = (item % chunks) * 8;
-    float comb[8];
-#pragma unroll
-    for (int pl = 0; pl < 3; ++pl) {
-      const int* t = taps + (i * 3 + pl) * kInts;
-      const float* wv = wts + (i * 3 + pl) * kFloats;
-      float f[8];
-      if (kCubic) {
-        for (int r = 0; r < 4; ++r) {
-          uint4 q[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            q[c] = __ldg(reinterpret_cast<const uint4*>(
-                P.table + ((size_t)t[r] + t[4 + c]) * cp + c8));
-          const bf16* v = reinterpret_cast<const bf16*>(q);  // v[c * 8 + e]
-          const float* w = wv + r * 4;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            float row = __fmul_rn(w[0], __bfloat162float(v[e]));
-#pragma unroll
-            for (int c = 1; c < 4; ++c)
-              row = __fadd_rn(row,
-                              __fmul_rn(w[c], __bfloat162float(v[c * 8 + e])));
-            f[e] = r == 0 ? row : __fadd_rn(f[e], row);
-          }
-        }
-      } else {
-        const float w0 = wv[0], w1 = wv[1], ty = wv[2];
-        uint4 q[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          q[k] = __ldg(reinterpret_cast<const uint4*>(
-              P.table + (size_t)t[k] * cp + c8));
-        const bf16* v = reinterpret_cast<const bf16*>(q);  // v[k * 8 + e]
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float top =
-              __fadd_rn(__fmul_rn(w0, __bfloat162float(v[e])),
-                        __fmul_rn(w1, __bfloat162float(v[8 + e])));
-          float bot =
-              __fadd_rn(__fmul_rn(w0, __bfloat162float(v[16 + e])),
-                        __fmul_rn(w1, __bfloat162float(v[24 + e])));
-          if (kV1) {
-            top = bf16r(top);
-            bot = bf16r(bot);
-            f[e] = __fadd_rn(__fmul_rn(top, __fsub_rn(1.0f, ty)),
-                             __fmul_rn(bot, ty));
-          } else {
-            f[e] = __fadd_rn(top, __fmul_rn(ty, __fsub_rn(bot, top)));
-          }
-        }
-      }
-      __align__(16) bf16 fo[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        comb[e] = pl == 0 ? f[e] : __fadd_rn(comb[e], f[e]);
-        fo[e] = __float2bfloat16_rn(f[e]);
-      }
-      *reinterpret_cast<uint4*>(feat + (pl * kPoints + i) * ldf + c8) =
-          *reinterpret_cast<const uint4*>(fo);
-    }
-    __align__(16) bf16 co[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      co[e] = __float2bfloat16_rn(P.avg ? __fdiv_rn(comb[e], 3.0f) : comb[e]);
-    *reinterpret_cast<uint4*>(feat + (3 * kPoints + i) * ldf + c8) =
-        *reinterpret_cast<const uint4*>(co);
-  }
-  if (!kSigmaOnly) {
-    const int vch = P.cvp / 8;
-    for (int item = tid; item < kPoints * vch; item += kThreads) {
-      const int i = item / vch, c8 = (item % vch) * 8;
-      const long long n = base + i;
-      uint4 q = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N)
-        q = __ldg(reinterpret_cast<const uint4*>(
-            P.view + (size_t)(n / P.S) * P.cvp + c8));
-      *reinterpret_cast<uint4*>(fv + i * L.ldv + c8) = q;
-    }
-  }
-  __syncthreads();
-
-  // phase 2: the decoder
-  const Part f0 = {feat, ldf, cp}, f1 = {feat + kPoints * ldf, ldf, cp},
-             f2 = {feat + 2 * kPoints * ldf, ldf, cp},
-             comb = {feat + 3 * kPoints * ldf, ldf, cp},
-             view = {fv, L.ldv, P.cvp};
-  const float4 o = decode<kSigmaOnly>(P.dec, f0, f1, f2, comb, view, hd, hr,
-                                      wbuf, stage, cp, P.cvp, warp, lane);
-  if (lane < 16) {
-    const long long n = base + warp * 16 + lane;
-    if (n < N) *reinterpret_cast<float4*>(P.out + n * 4) = o;
-  }
+  const Gather<kSigmaOnly, kCubic, kGrids, kV1> job{P, (long long)P.R * P.S};
+  run_decoder<kSigmaOnly>(job, P.dec, L, job.N, smem);
 }
 
 template <bool kSigmaOnly, bool kCubic, bool kGrids = false, bool kV1 = false>
-int launch(const Params& p, cudaStream_t stream) {
-  const int max_rows = max_layer_rows(p.dec, kSigmaOnly, p.cp, p.cvp);
-  const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp, max_rows,
+int launch(Params p, cudaStream_t stream) {
+  set_slices(p.dec, p.cp, p.cvp);
+  const Layout L = make_layout(p.cp, kSigmaOnly ? 0 : p.cvp,
                                TapShape<kCubic>::kInts,
                                TapShape<kCubic>::kFloats);
-  cudaError_t err = cudaFuncSetAttribute(
-      triplane_render_kernel<kSigmaOnly, kCubic, kGrids, kV1>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)p.R * p.S;
-  const long long blocks = (n + kPoints - 1) / kPoints;
-  if (blocks > 0)
-    triplane_render_kernel<kSigmaOnly, kCubic, kGrids, kV1>
-        <<<(unsigned)blocks, kThreads, L.total, stream>>>(p, L);
-  return (int)cudaGetLastError();
+  return launch_persistent(
+      triplane_render_kernel<kSigmaOnly, kCubic, kGrids, kV1>, p, L,
+      (long long)p.R * p.S, stream);
 }
 
 Params make_params(const void* table, int H, int W, int cp,
@@ -338,8 +325,8 @@ Params make_params(const void* table, int H, int W, int cp,
   p.origins = origins; p.dirs = dirs; p.z = z; p.R = R; p.S = S;
   p.grids = nullptr;
   p.view = static_cast<const bf16*>(view); p.cvp = cvp;
-  p.dec.w = static_cast<const bf16*>(w); p.dec.b = b;
-  p.dec.wh = static_cast<const bf16*>(wh); p.dec.bh = bh;
+  p.dec.ws = static_cast<const bf16*>(w); p.dec.b = b;
+  p.dec.whs = static_cast<const bf16*>(wh); p.dec.bh = bh;
   p.dec.n_density = n_density; p.dec.n_rgb = n_rgb;
   p.dec.skip_every = skip_every;
   p.align_corners = align_corners; p.avg = avg; p.out = out;
@@ -353,7 +340,8 @@ Params make_params(const void* table, int H, int W, int cp,
 }  // namespace
 
 // C interface (ctypes). Returns a cudaError_t: 0 when the launch was
-// accepted. geom_host: 24 host floats (box min, box max, rot[p][c][1:3]).
+// accepted. geom_host: 24 host floats (box min, box max, rot[p][c][1:3]);
+// w, b, wh, bh: the packed decoder (PackedDecoder.ws, b, whs, bh).
 #define TRIPLANE_ARGS                                                        \
   const void *table, int H, int W, int cp, const float *origins,            \
       const float *dirs, const float *z, int R, int S, const void *view,    \

@@ -160,6 +160,13 @@ def _check(t, name, dtype, device, shape=None, aligned=False):
                          f"got {tuple(t.shape)}")
 
 
+def _check_packed(packed, dev):
+    _check(packed.ws, "packed.ws", torch.bfloat16, dev, aligned=True)
+    _check(packed.b, "packed.b", torch.float32, dev, aligned=True)
+    _check(packed.whs, "packed.whs", torch.bfloat16, dev, aligned=True)
+    _check(packed.bh, "packed.bh", torch.float32, dev)
+
+
 def triplane_render(table, packed, origins, directions, z_vals, view, geom,
                     *, align_corners: bool, avg: bool, sigma_only: bool,
                     cubic: bool = False) -> torch.Tensor:
@@ -175,10 +182,7 @@ def triplane_render(table, packed, origins, directions, z_vals, view, geom,
     _check(origins, "origins", torch.float32, dev, (r, 3))
     _check(directions, "directions", torch.float32, dev, (r, 3))
     _check(z_vals, "z_vals", torch.float32, dev)
-    _check(packed.w, "packed.w", torch.bfloat16, dev)
-    _check(packed.b, "packed.b", torch.float32, dev)
-    _check(packed.wh, "packed.wh", torch.bfloat16, dev)
-    _check(packed.bh, "packed.bh", torch.float32, dev)
+    _check_packed(packed, dev)
     if packed.cp % 16 or packed.cvp % 16:
         raise ValueError("feature parts must be padded to 16 channels")
     if sigma_only:
@@ -199,8 +203,8 @@ def triplane_render(table, packed, origins, directions, z_vals, view, geom,
         stream = torch.cuda.current_stream(dev).cuda_stream
         kern(table.data_ptr(), h, w, cp, origins.data_ptr(),
              directions.data_ptr(), z_vals.data_ptr(), r, s, view_ptr,
-             packed.cvp, packed.w.data_ptr(), packed.b.data_ptr(),
-             packed.wh.data_ptr(), packed.bh.data_ptr(), packed.n_density,
+             packed.cvp, packed.ws.data_ptr(), packed.b.data_ptr(),
+             packed.whs.data_ptr(), packed.bh.data_ptr(), packed.n_density,
              packed.n_rgb, packed.skip_every, ctypes.cast(g, _P),
              int(align_corners), int(avg), out.data_ptr(), stream)
     return out
@@ -227,10 +231,7 @@ def triplane_render_grids(table, packed, grids, view, *,
     _check(table, "table", torch.bfloat16, dev, (3, h, w, packed.cp),
            aligned=True)
     _check(grids, "grids", torch.float32, dev, (3, n, 2), aligned=True)
-    _check(packed.w, "packed.w", torch.bfloat16, dev)
-    _check(packed.b, "packed.b", torch.float32, dev)
-    _check(packed.wh, "packed.wh", torch.bfloat16, dev)
-    _check(packed.bh, "packed.bh", torch.float32, dev)
+    _check_packed(packed, dev)
     if packed.cp % 16 or packed.cvp % 16:
         raise ValueError("feature parts must be padded to 16 channels")
     if sigma_only:
@@ -248,8 +249,8 @@ def triplane_render_grids(table, packed, grids, view, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kern(table.data_ptr(), h, w, cp, grids.data_ptr(), n, view_ptr,
-             packed.cvp, packed.w.data_ptr(), packed.b.data_ptr(),
-             packed.wh.data_ptr(), packed.bh.data_ptr(), packed.n_density,
+             packed.cvp, packed.ws.data_ptr(), packed.b.data_ptr(),
+             packed.whs.data_ptr(), packed.bh.data_ptr(), packed.n_density,
              packed.n_rgb, packed.skip_every, int(align_corners), int(avg),
              out.data_ptr(), stream)
     return out
@@ -267,10 +268,7 @@ def fused_decode_forward(rows, ty, view, packed, *, avg: bool
     _check(rows, "rows", torch.bfloat16, dev, (3 * n, 128), aligned=True)
     _check(ty, "ty", torch.float32, dev, (3 * n,))
     _check(view, "view", torch.float32, dev, (n, 64), aligned=True)
-    _check(packed.w, "packed.w", torch.bfloat16, dev)
-    _check(packed.b, "packed.b", torch.float32, dev)
-    _check(packed.wh, "packed.wh", torch.bfloat16, dev)
-    _check(packed.bh, "packed.bh", torch.float32, dev)
+    _check_packed(packed, dev)
     if packed.cp % 16 or packed.cvp % 16 or max(packed.cp, packed.cvp) > 64:
         raise ValueError("feature parts must be padded to 16 channels, "
                          "at most 64")
@@ -280,8 +278,8 @@ def fused_decode_forward(rows, ty, view, packed, *, avg: bool
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fused_decode(rows.data_ptr(), ty.data_ptr(), view.data_ptr(), n,
-                     packed.cp, packed.cvp, packed.w.data_ptr(),
-                     packed.b.data_ptr(), packed.wh.data_ptr(),
+                     packed.cp, packed.cvp, packed.ws.data_ptr(),
+                     packed.b.data_ptr(), packed.whs.data_ptr(),
                      packed.bh.data_ptr(), packed.n_density, packed.n_rgb,
                      packed.skip_every, int(avg), out.data_ptr(), stream)
     return out

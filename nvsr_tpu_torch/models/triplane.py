@@ -334,12 +334,18 @@ def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
             alpha.shape[:-1] + (3,))
         return torch.cat([rgb, alpha], dim=-1)
     if "features" in cfg.rgb_dec_input:
-        raise NotImplementedError(
-            "rgb_dec_input='features' is not ported yet")
-    if cfg.use_viewdirs:
-        x_rgb_in = combine_all_planes(pos_projs, view_proj, cfg)
+        if cfg.rgb_dec_input == "projections_features":
+            raise NotImplementedError(
+                "projections_features is deprecated in the reference")
+        # 'features': the rgb branch reads the density features through
+        # fc_feat (an f32 matmul, as in JAX), as a one-plane stack
+        rgb_src = _linear(m["fc_feat"], h)[None]
     else:
-        x_rgb_in = combine_pos_planes(pos_projs, cfg.proj_combination)
+        rgb_src = pos_projs
+    if cfg.use_viewdirs:
+        x_rgb_in = combine_all_planes(rgb_src, view_proj, cfg)
+    else:
+        x_rgb_in = combine_pos_planes(rgb_src, cfg.proj_combination)
     _, rgb = _mlp_branch(m["rgb"], m["fc_rgb"], x_rgb_in, cfg)
     return torch.cat([rgb, alpha], dim=-1)
 

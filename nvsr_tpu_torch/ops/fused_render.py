@@ -59,6 +59,8 @@ from nvsr_tpu_torch.ops.grid_sample import (_corners, cubic_taps,
 WIDTH = 128        # decoder width the kernel supports (dec_channels)
 HEAD_COLS = 16     # head block width: rgb in cols 0:3, sigma in col 3
 CH_ALIGN = 16      # feature parts are padded to a multiple of this
+STEP_ROWS = 16     # K rows of one wgmma step (csrc/decoder.cuh)
+SLICE_ROWS = 64    # K rows of one 16 KB slice of the kernels' weight ring
 
 
 def _round_up(x: int, m: int) -> int:
@@ -118,11 +120,17 @@ class PackedDecoder:
     b:  [n_density + n_rgb, 128] f32 biases.
     wh: [2, 128, 16] bf16 heads: fc_rgb into cols 0:3, fc_alpha into
         col 3. bh: [16] f32 head bias (rgb 0:3, sigma 3).
+    ws: w as the kernels stream it (pack_stream): the density blocks,
+        then the rgb blocks, each branch zero-padded to SLICE_ROWS rows,
+        in the wgmma B layout. whs: wh in the B layout (flat bf16).
+    The plain version reads w and wh, the kernels ws and whs.
     """
     w: torch.Tensor
     b: torch.Tensor
     wh: torch.Tensor
     bh: torch.Tensor
+    ws: torch.Tensor
+    whs: torch.Tensor
     n_density: int
     n_rgb: int
     skip_every: int     # 0 = no skip layers
@@ -144,9 +152,32 @@ class PackedDecoder:
         return out
 
 
+def to_b_layout(w: torch.Tensor) -> torch.Tensor:
+    """[K, N] (K a multiple of 16, N of 8) -> flat, in the layout the
+    wgmma B descriptor of csrc/decoder.cuh reads (no swizzle, K-major):
+    per K step of 16 rows, [2 k-halves][N / 8 column groups][8 columns]
+    [8 rows], i.e. 8x8 core matrices of 128 contiguous bytes."""
+    k, n = w.shape
+    return w.reshape(k // STEP_ROWS, 2, 8, n // 8, 8).permute(
+        0, 1, 3, 4, 2).reshape(-1)
+
+
+def pack_stream(w, d_rows: int) -> torch.Tensor:
+    """The kernels' weight stream: w's density blocks (its first d_rows
+    rows) and rgb blocks, each branch zero-padded to whole SLICE_ROWS
+    slices, in the B layout."""
+    parts = []
+    for blk in (w[:d_rows], w[d_rows:]):
+        pad = blk.new_zeros((_round_up(blk.shape[0], SLICE_ROWS)
+                             - blk.shape[0], WIDTH))
+        parts.append(to_b_layout(torch.cat([blk, pad])))
+    return torch.cat(parts).contiguous()
+
+
 def pack_decoder(params, cfg, member: int = 0) -> PackedDecoder:
     """Pack decoder `member` (JAX pytree layout, torch tensors) for the
-    kernel; weights are rounded to bf16 once here."""
+    kernel; weights are rounded to bf16 and repacked into the kernels'
+    layout once here."""
     if not supports(cfg):
         raise ValueError(f"the fused triplane kernel does not support {cfg}")
     m = params["members"][member]
@@ -180,12 +211,17 @@ def pack_decoder(params, cfg, member: int = 0) -> PackedDecoder:
     bh = torch.zeros(HEAD_COLS, device=dev)
     bh[:3] = m["fc_rgb"]["b"].float()
     bh[3] = m["fc_alpha"]["b"].float()[0]
+    w = torch.cat(blocks).to(torch.bfloat16)
+    wh = wh.to(torch.bfloat16)
+    n_density = len(m["density"])
+    d_rows = sum(blk.shape[0] for blk in blocks[:n_density])
     return PackedDecoder(
-        w=torch.cat(blocks).to(torch.bfloat16).contiguous(),
-        b=torch.stack(biases).contiguous(),
-        wh=wh.to(torch.bfloat16).contiguous(), bh=bh.contiguous(),
-        n_density=len(m["density"]), n_rgb=len(m["rgb"]),
-        skip_every=skip_every, cp=cp, cvp=cvp)
+        w=w.contiguous(), b=torch.stack(biases).contiguous(),
+        wh=wh.contiguous(), bh=bh.contiguous(),
+        ws=pack_stream(w, d_rows),
+        whs=torch.cat([to_b_layout(wh[0]), to_b_layout(wh[1])]).contiguous(),
+        n_density=n_density, n_rgb=len(m["rgb"]), skip_every=skip_every,
+        cp=cp, cvp=cvp)
 
 
 def view_rows(vp_ray, cvp: int) -> torch.Tensor:

@@ -143,6 +143,51 @@ def test_pack_decoder_layout(rng):
     assert packed.bh[3] == float(m["fc_alpha"]["b"][0])
 
 
+def _unpack_stream(packed):
+    """(w, wh) rebuilt from packed.ws and packed.whs: the inverse of
+    pack_stream and to_b_layout."""
+    def from_b(flat, k, n):
+        return flat.reshape(k // 16, 2, n // 8, 8, 8).permute(
+            0, 1, 4, 2, 3).reshape(k, n)
+
+    d = sum(k for br, _, _, k, _ in packed.layers() if br == "density")
+    r = packed.w.shape[0] - d
+    dp, rp = -(-d // 64) * 64, -(-r // 64) * 64
+    w = torch.cat([from_b(packed.ws[:dp * 128], dp, 128)[:d],
+                   from_b(packed.ws[dp * 128:], rp, 128)[:r]])
+    wh = torch.stack([from_b(packed.whs[i * 2048:(i + 1) * 2048], 128, 16)
+                      for i in range(2)])
+    return w, wh, dp + rp
+
+
+@pytest.mark.parametrize("skip,layers,rgb_layers,chans", [
+    (3, 4, 4, 48), (1, 5, 3, 16), (2, 3, 6, 64), (0, 4, 4, 40)])
+def test_pack_stream_is_a_permutation(rng, skip, layers, rgb_layers, chans):
+    """The kernels' repack (ws: each branch padded to 64-row slices, in the
+    wgmma B layout; whs: the heads) holds exactly w's and wh's bits:
+    unpacking gives them back, every value of w appears in ws as often,
+    and the rest of ws is the padding's zeros."""
+    cfg = dataclasses.replace(
+        FLAGSHIP, skip_connect_every=skip or None, dec_density_layers=layers,
+        dec_rgb_layers=rgb_layers, num_plane_channels=chans)
+    packed = fused_render.pack_decoder(to_port(np_decoder(rng, cfg)),
+                                       port_cfg(cfg))
+    w, wh, rows = _unpack_stream(packed)
+    assert torch.equal(w, packed.w) and torch.equal(wh, packed.wh)
+    assert packed.ws.shape == (rows * 128,)
+    assert packed.whs.shape == (2 * 128 * 16,)
+    ws = packed.ws.view(torch.int16).sort().values
+    pad = torch.zeros(packed.ws.numel() - packed.w.numel(),
+                      dtype=torch.int16)
+    assert torch.equal(ws, torch.cat([packed.w.reshape(-1).view(torch.int16),
+                                      pad]).sort().values)
+    # one K step: element (k, n) at ((k // 8) * 16 + n // 8) * 64
+    # + (n % 8) * 8 + k % 8
+    k, n = 11, 37
+    assert packed.ws[((k // 8) * 16 + n // 8) * 64 + (n % 8) * 8 + k % 8] \
+        == packed.w[k, n]
+
+
 def test_supports_gates_unported_configs():
     assert fused_render.supports(port_cfg(FLAGSHIP))
     for change in ({"compute_dtype": None}, {"dec_channels": 64},

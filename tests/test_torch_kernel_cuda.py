@@ -53,9 +53,12 @@ def _decoder(gen, cfg, device):
         "fc_rgb": lin(128, 3)}]}
 
 
-def _inputs(device, layers=4, chans=48, R=300, S=24, res=96, seed=0):
-    cfg = TriplaneConfig(dec_density_layers=layers, dec_rgb_layers=layers,
-                         num_plane_channels=chans, skip_connect_every=3,
+def _inputs(device, layers=4, chans=48, R=300, S=24, res=96, seed=0,
+            rgb_layers=None, skip=3, view_chans=None):
+    cfg = TriplaneConfig(dec_density_layers=layers,
+                         dec_rgb_layers=rgb_layers or layers,
+                         num_plane_channels=chans, skip_connect_every=skip,
+                         num_viewdir_plane_channels=view_chans,
                          proj_combination="avg",
                          viewdir_proj_combination="concat_pos",
                          compute_dtype="bfloat16")
@@ -67,16 +70,39 @@ def _inputs(device, layers=4, chans=48, R=300, S=24, res=96, seed=0):
     dirs = torch.randn((R, 3), generator=gen)
     z = torch.sort(torch.rand((R, S), generator=gen) * 3 + 0.5, -1).values
     view = fused_render.view_rows(
-        torch.randn((R, chans), generator=gen).to(device), packed.cvp)
+        torch.randn((R, cfg.viewdir_channels), generator=gen).to(device),
+        packed.cvp)
     geom = fused_render.geometry_args(BOX, make_rot_mats(3))
     return (table, packed, origins.to(device), dirs.to(device),
             z.to(device), view, geom)
 
 
+# decoder and point-count cases of the persistent decoder (csrc/decoder.cuh):
+# feature widths cp/cvp 16 and 64, a skip after every layer, density and
+# rgb depths that differ, a ragged last 128-point tile (N = 128 k + 37), N
+# below one tile, and more tiles than the card has SMs (132), so each
+# block's loop wraps
+SHAPES = {
+    "cp16": dict(chans=16, view_chans=16),
+    "cp64": dict(chans=64, view_chans=64),
+    "cp64v16": dict(chans=64, view_chans=16),
+    "skip1": dict(layers=5, skip=1),
+    "d3r6": dict(layers=3, rgb_layers=6, chans=32),
+    "ragged": dict(R=161, S=5),            # N = 805 = 6 * 128 + 37
+    "small": dict(R=7, S=9),               # N = 63
+    "wrap": dict(R=1100, S=24),            # N = 26,400: 207 tiles
+}
+
+
 @pytest.mark.parametrize("cubic", [False, True])
-@pytest.mark.parametrize("layers,chans", [(4, 48), (6, 16), (7, 40)])
-def test_kernel_matches_plain(device, layers, chans, cubic):
-    args = _inputs(device, layers, chans)
+@pytest.mark.parametrize("layers,chans,shape", [
+    (4, 48, None), (6, 16, None), (7, 40, None)] + [
+    (None, None, name) for name in SHAPES])
+def test_kernel_matches_plain(device, layers, chans, shape, cubic):
+    kw = dict(SHAPES.get(shape, {}))
+    if layers is not None:
+        kw.update(layers=layers, chans=chans)
+    args = _inputs(device, **kw)
     for so in (False, True):
         kw = dict(align_corners=True, avg=True, sigma_only=so, cubic=cubic)
         out = kernels.triplane_render(*args, **kw)
@@ -221,9 +247,11 @@ def test_meta_tensors_raise(device):
 # copies, bit-equal.
 
 
-def _grids_inputs(device, layers=4, chans=48, seed=3):
+def _grids_inputs(device, layers=4, chans=48, seed=3, **kw):
+    kw.setdefault("R", 300)
+    kw.setdefault("S", 24)
     table, packed, origins, dirs, z, view, geom = _inputs(
-        device, layers, chans, R=300, S=24, seed=seed)
+        device, layers, chans, seed=seed, **kw)
     r, s = z.shape
     grids = torch.stack(fused_render.plane_grids(origins, dirs, z, geom))
     # a fifth of the points past the border
@@ -235,9 +263,13 @@ def _grids_inputs(device, layers=4, chans=48, seed=3):
 
 @pytest.mark.parametrize("form,sigma_only", [("v2", False), ("v2", True),
                                              ("v1", False)])
-@pytest.mark.parametrize("layers,chans", [(4, 48), (6, 16)])
-def test_grids_entries_match_plain(device, layers, chans, form, sigma_only):
-    table, packed, grids, view = _grids_inputs(device, layers, chans)
+@pytest.mark.parametrize("layers,chans,shape", [
+    (4, 48, None), (6, 16, None)] + [(4, 48, name) for name in SHAPES])
+def test_grids_entries_match_plain(device, layers, chans, shape, form,
+                                   sigma_only):
+    kw = dict(layers=layers, chans=chans)
+    kw.update(SHAPES.get(shape, {}))
+    table, packed, grids, view = _grids_inputs(device, **kw)
     kern = (kernels.triplane_render_grids_v1 if form == "v1" else
             kernels.triplane_render_grids_sigma_only if sigma_only else
             kernels.triplane_render_grids_full)
@@ -274,11 +306,15 @@ def test_grids_entry_equals_the_ray_entry(device):
         assert torch.equal(rays.reshape(r * s, 4), pts), so
 
 
-def test_fused_decode_matches_plain(device):
+@pytest.mark.parametrize("shape,n", [(None, 1000)] + [
+    (name, {"ragged": 805, "small": 63, "wrap": 26400}.get(name, 1000))
+    for name in SHAPES])
+def test_fused_decode_matches_plain(device, shape, n):
     from nvsr_tpu_torch.ops import fused_decoder as fd
-    _, packed, *_ = _inputs(device, seed=5)
+    kw = {k: v for k, v in SHAPES.get(shape, {}).items()
+          if k not in ("R", "S")}
+    _, packed, *_ = _inputs(device, seed=5, R=8, S=4, **kw)
     gen = torch.Generator().manual_seed(6)
-    n = 1000
     rows = (0.5 * torch.randn((3 * n, 128), generator=gen)).to(
         torch.bfloat16).to(device)
     ty = torch.rand((3 * n,), generator=gen).to(device)
@@ -293,13 +329,16 @@ def test_fused_decode_matches_plain(device):
     assert kernels.fused_decode.launches == before + 1
 
 
-@pytest.mark.parametrize("hw,c", [(4096, 256), (1024, 48), (4096, 4),
-                                  (4096, 2)])
-def test_gather_rows_bit_equal(device, hw, c):
+# the last case is many times the rows the card holds in flight at once
+# (C = 256: 16 rows a block, 8,448 blocks, 64 for each of 132 SMs)
+@pytest.mark.parametrize("hw,c,n", [(4096, 256, 3072), (1024, 48, 3072),
+                                    (4096, 4, 3072), (4096, 2, 3072),
+                                    (8192, 256, 135168)])
+def test_gather_rows_bit_equal(device, hw, c, n):
     from nvsr_tpu_torch.ops import gather_dma as gd
     gen = torch.Generator().manual_seed(7)
     table = torch.randn((hw, c), generator=gen).to(device)
-    idx = torch.randint(0, hw, (3 * 1024,), generator=gen,
+    idx = torch.randint(0, hw, (n,), generator=gen,
                         dtype=torch.int32).to(device)
     before = kernels.gather_rows.launches
     out = (gd.gather_rows_dma(table, idx) if 1024 % c == 0 else
