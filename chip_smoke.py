@@ -24,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
   5. training (TrainModels stage 1 at full width, nerf.train.tiled_gather
      on): the trainable plane sampler's forward and backward kernels
      against their plain versions at the coarse pass's shapes (4096 rays
-     x 16 samples on 3x48x200^2 planes), timed beside F.grid_sample; the
+     x 16 samples on 3x48x200^2 planes; the backward also on a uniformly
+     random copy of the grids), timed beside F.grid_sample; the
      first HR/SR and LR steps through the kernels and through the plain
      sampler (losses must agree); then, with launch counts zeroed, 3
      HR/SR steps (EDSR 256x32 x4 bf16 trained, fine pass on the SR'd
@@ -66,7 +67,8 @@ core, 67 TFLOP/s f32), counted from this run's shapes.
 The last two lines are the kernels JSON and the result JSON.
 
 python3 chip_smoke.py --times [ROOT ...] checks nothing: it times the
-decoder's kernels, the row gather and the flagship frame for the package
+decoder's kernels, the plane sampler's kernels beside F.grid_sample, the
+row gather, the flagship frame and the f32 bicubic frame for the package
 under each ROOT (default: this checkout), each in its own process, to
 compare builds in one call (e.g. a parent checkout unpacked under build/,
 then this one).
@@ -406,14 +408,23 @@ def sampler_checks(dev, planes_pos, grids, dout):
     table = build_plane_table(planes_pos)
     fwd = kernels.plane_sample_forward(table, grids, c, align_corners=True)
     fwd_ref = ps.plane_sample_reference(table, grids, c, True)
-    bwd = kernels.plane_sample_backward(dout, grids, h, w,
-                                        align_corners=True)
-    bwd_ref = ps.plane_sample_backward_reference(dout, grids, h, w, True)
-    torch.cuda.synchronize()
-    for t in (fwd, bwd):
-        if not torch.isfinite(t).all():
-            fail("plane_sample: non-finite kernel output")
-    e_f, e_b = (fwd - fwd_ref).abs(), (bwd - bwd_ref).abs()
+    # the backward on the coarse pass's grids (tile-coherent: a chunk's
+    # taps share ~120 cells) and on a uniformly random copy of them (a cell
+    # per tap: the chunk tables at their fullest, the adds uncoalesced)
+    rand_grids = torch.rand(grids.shape, generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev) * 2 - 1
+    e_b = {}
+    for name, g in (("coherent", grids), ("random", rand_grids)):
+        bwd = kernels.plane_sample_backward(dout, g, h, w, align_corners=True)
+        bwd_ref = ps.plane_sample_backward_reference(dout, g, h, w, True)
+        torch.cuda.synchronize()
+        if not torch.isfinite(bwd).all():
+            fail("plane_sample_bwd: non-finite kernel output")
+        e_b[name] = (bwd - bwd_ref).abs()
+    worst = max(e.max().item() for e in e_b.values())
+    if not torch.isfinite(fwd).all():
+        fail("plane_sample_fwd: non-finite kernel output")
+    e_f = (fwd - fwd_ref).abs()
 
     g4 = grids.reshape(p, 1, n, 2)
     x = planes_pos.detach().requires_grad_(True)
@@ -424,21 +435,23 @@ def sampler_checks(dev, planes_pos, grids, dout):
 
     y = lib_fwd()
     cot = dout.permute(0, 2, 1).reshape(p, c, 1, n).contiguous()
-    ms = {
-        "fwd": cuda_ms(lambda: kernels.plane_sample_forward(
-            table, grids, c, align_corners=True), warmup=3, reps=20),
-        "fwd_plain": cuda_ms(lambda: ps.plane_sample_reference(
-            table, grids, c, True), warmup=1, reps=5),
-        "fwd_lib": cuda_ms(lambda: lib_fwd().detach(), warmup=3, reps=20),
-        "bwd": cuda_ms(lambda: kernels.plane_sample_backward(
-            dout, grids, h, w, align_corners=True), warmup=3, reps=20),
-        "bwd_plain": cuda_ms(lambda: ps.plane_sample_backward_reference(
-            dout, grids, h, w, True), warmup=1, reps=5),
-        "bwd_lib": cuda_ms(lambda: torch.autograd.grad(
-            y, x, cot, retain_graph=True), warmup=3, reps=20),
-        "fwdbwd_lib": cuda_ms(lambda: torch.autograd.grad(
-            lib_fwd(), x, cot), warmup=3, reps=20),
-    }
+    # kernels and library calls: device-time medians of 25 in turns
+    # (interleaved_ms); plain versions: CUDA-event means
+    ms = dict(zip(("fwd", "fwd_lib", "bwd", "bwd_random", "bwd_lib",
+                   "fwdbwd_lib"), (ts[len(ts) // 2] for ts in interleaved_ms((
+        lambda: kernels.plane_sample_forward(table, grids, c,
+                                             align_corners=True),
+        lambda: lib_fwd().detach(),
+        lambda: kernels.plane_sample_backward(dout, grids, h, w,
+                                              align_corners=True),
+        lambda: kernels.plane_sample_backward(dout, rand_grids, h, w,
+                                              align_corners=True),
+        lambda: torch.autograd.grad(y, x, cot, retain_graph=True),
+        lambda: torch.autograd.grad(lib_fwd(), x, cot))))))
+    ms["fwd_plain"] = cuda_ms(lambda: ps.plane_sample_reference(
+        table, grids, c, True), warmup=1, reps=5)
+    ms["bwd_plain"] = cuda_ms(lambda: ps.plane_sample_backward_reference(
+        dout, grids, h, w, True), warmup=1, reps=5)
     f32 = 4
     # forward: 4 products, 2 sums, 2 roundings, 2 products, 1 sum per
     # output value; backward: 4 products, 2 roundings, 4 adds per dout
@@ -452,16 +465,19 @@ def sampler_checks(dev, planes_pos, grids, dout):
           f"{SAMPLE_FWD_TOL}); kernel {ms['fwd']:.4f} ms, plain "
           f"{ms['fwd_plain']:.4f} ms, F.grid_sample {ms['fwd_lib']:.4f} ms; "
           f"bound {b_f[0]:.4f} ms by {b_f[1]} ({b_f[0] / ms['fwd']:.1%})")
-    print(f"[train] plane_sample_bwd ({shape}): max err "
-          f"{e_b.max().item():.3e}, mean {e_b.mean().item():.3e} (tol max "
+    errs = ", ".join(f"{k} grids max {e.max().item():.3e}, mean "
+                     f"{e.mean().item():.3e}" for k, e in e_b.items())
+    print(f"[train] plane_sample_bwd ({shape}): {errs} (tol max "
           f"{SAMPLE_BWD_MAX_TOL}, mean {SAMPLE_BWD_MEAN_TOL}); kernel "
-          f"{ms['bwd']:.4f} ms, plain {ms['bwd_plain']:.4f} ms, grid_sample "
+          f"{ms['bwd']:.4f} ms (random grids {ms['bwd_random']:.4f} ms), "
+          f"plain {ms['bwd_plain']:.4f} ms, grid_sample "
           f"backward {ms['bwd_lib']:.4f} ms (forward+backward "
           f"{ms['fwdbwd_lib']:.4f} ms); bound {b_b[0]:.4f} ms by {b_b[1]} "
           f"({b_b[0] / ms['bwd']:.1%})")
     if e_f.max() > SAMPLE_FWD_TOL:
         fail("plane_sample_fwd disagrees with its plain version")
-    if e_b.max() > SAMPLE_BWD_MAX_TOL or e_b.mean() > SAMPLE_BWD_MEAN_TOL:
+    if any(e.max() > SAMPLE_BWD_MAX_TOL or e.mean() > SAMPLE_BWD_MEAN_TOL
+           for e in e_b.values()):
         fail("plane_sample_bwd disagrees with its plain version")
     src = "nvsr_tpu_torch/csrc/plane_sample.cu"
     return {
@@ -474,7 +490,7 @@ def sampler_checks(dev, planes_pos, grids, dout):
         "plane_sample_bwd": {
             "name": "plane_sample_bwd", "route": "cuda", "source": src,
             "replaces": "nvsr_tpu/ops/pallas/tile_sampler.py:1801",
-            "max_abs_err": e_b.max().item(), "ms": ms["bwd"],
+            "max_abs_err": worst, "ms": ms["bwd"],
             "plain_ms": ms["bwd_plain"], "bound_ms": b_b[0],
             "bound_by": b_b[1], "library_ms": ms["bwd_lib"]}}
 
@@ -516,6 +532,49 @@ def profile_run(label, fn):
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+def train_batches(dev, c2w, w):
+    """The training phase's ray batches: w["rays"] rays as random 8x8
+    tiles of a w["image"]^2 view (bench.py's occ16), occupancy-tightened,
+    from numpy seed 0 -> batch() -> (rays, target rgb)."""
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch.render import build_sampled_rays, tighten_bundle
+    from nvsr_tpu_torch.train import choose_tile_pixels
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    img = w["image"]
+    focal = 0.5 * img / np.tan(0.3)
+    rng = np.random.default_rng(0)
+    views = rng.uniform(size=(img, img, 3)).astype(np.float32)
+    pose = torch.as_tensor(c2w, device=dev)
+
+    def batch():
+        rows, cols, tgt = choose_tile_pixels(rng, views, w["rays"], (8, 8))
+        rays = build_sampled_rays(pose, rows, cols, img, img, focal, 0.0,
+                                  2.0, 6.0, use_viewdirs=True)
+        return tighten_bundle(rays, occ), torch.as_tensor(tgt, device=dev)
+
+    return batch
+
+
+def coarse_grids(rays, box, samples):
+    """The training coarse pass's plane coordinates of `rays` (stratified,
+    perturbed depths from seed 4) -> [3, R * samples, 2] in the order
+    training hands them to the sampler (ray-major, tile after tile)."""
+    import torch
+    from nvsr_tpu_torch.models.triplane import (make_rot_mats,
+                                                project_to_planes)
+    from nvsr_tpu_torch.ops.geometry import normalize_coords
+    from nvsr_tpu_torch.ops.sampling import stratified_z_vals
+    dev = rays.origins.device
+    z = stratified_z_vals(rays.near, rays.far, samples, lindisp=False,
+                          perturb=True,
+                          generator=torch.Generator(device=dev).manual_seed(4))
+    pts = rays.origins[:, None] + rays.directions[:, None] * z[..., None]
+    xyz = normalize_coords(pts.reshape(-1, 3),
+                           torch.as_tensor(box[:, :3], device=dev))
+    return project_to_planes(xyz, make_rot_mats(3)).contiguous()
+
+
 def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
     """Phase 5 (see the module docstring). With on_card=False (a CPU
     rehearsal at a small `w`) the kernel checks and launch counts are
@@ -529,17 +588,11 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
     from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig,
                                                 init_plane_sr_params)
     from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
-                                                init_decoder_params,
-                                                make_rot_mats,
-                                                project_to_planes)
-    from nvsr_tpu_torch.ops.geometry import normalize_coords
+                                                init_decoder_params)
     from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
-    from nvsr_tpu_torch.ops.sampling import stratified_z_vals
     from nvsr_tpu_torch.planes_store import PlanesOptimizer
-    from nvsr_tpu_torch.render import (RenderConfig, build_sampled_rays,
-                                       tighten_bundle)
-    from nvsr_tpu_torch.train import (ModuleOptimizer, StepFlags,
-                                      choose_tile_pixels, train_step)
+    from nvsr_tpu_torch.render import RenderConfig
+    from nvsr_tpu_torch.train import ModuleOptimizer, StepFlags, train_step
 
     def sync():
         if on_card:
@@ -565,18 +618,7 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
                                           generator=gen)).to(dev)}
     box = np.stack([[-4, -4, -4, -np.pi, -np.pi / 2],
                     [4, 4, 4, np.pi, np.pi / 2]]).astype(np.float32)
-    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
-    img = w["image"]
-    focal = 0.5 * img / np.tan(0.3)
-    rng = np.random.default_rng(0)
-    views = rng.uniform(size=(img, img, 3)).astype(np.float32)
-    pose = torch.as_tensor(c2w, device=dev)
-
-    def batch():
-        rows, cols, tgt = choose_tile_pixels(rng, views, w["rays"], (8, 8))
-        rays = build_sampled_rays(pose, rows, cols, img, img, focal, 0.0,
-                                  2.0, 6.0, use_viewdirs=True)
-        return tighten_bundle(rays, occ), torch.as_tensor(tgt, device=dev)
+    batch = train_batches(dev, c2w, w)
 
     rcfg = RenderConfig(num_coarse=s, num_fine=s, perturb=True,
                         radiance_field_noise_std=0.2)
@@ -595,14 +637,7 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
     entries = {}
     if on_card:
         with torch.no_grad():
-            z = stratified_z_vals(
-                rays0.near, rays0.far, s, lindisp=False, perturb=True,
-                generator=torch.Generator(device=dev).manual_seed(4))
-            pts = rays0.origins[:, None] + rays0.directions[:, None] \
-                * z[..., None]
-            xyz = normalize_coords(pts.reshape(-1, 3),
-                                   torch.as_tensor(box[:, :3], device=dev))
-            grids = project_to_planes(xyz, make_rot_mats(3)).contiguous()
+            grids = coarse_grids(rays0, box, s)
             dout = torch.randn((3, grids.shape[1], c),
                                generator=torch.Generator().manual_seed(5)
                                ).to(dev)
@@ -868,6 +903,16 @@ def render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
     return entries, fine_args
 
 
+def fine_grids(fine_args):
+    """The fine pass's plane coordinates [3, R * S, 2] from its
+    triplane_render arguments (pass_args)."""
+    import torch
+    from nvsr_tpu_torch.ops.fused_render import plane_grids
+    _, _, origins, directions, z, _, geom = fine_args
+    return torch.stack(plane_grids(origins, directions, z, geom)
+                       ).contiguous()
+
+
 def cubic_sampler_check(planes_sr, fine_args):
     """plane_sample_cubic_fwd against its plain version at the fine pass's
     shapes (the fine block's points on the SR planes), timed beside
@@ -876,10 +921,8 @@ def cubic_sampler_check(planes_sr, fine_args):
     import torch.nn.functional as F
     from nvsr_tpu_torch import kernels
     from nvsr_tpu_torch.ops import plane_sample as ps
-    from nvsr_tpu_torch.ops.fused_render import plane_grids
-    table, _, origins, directions, z, _, geom = fine_args
-    grids = torch.stack(plane_grids(origins, directions, z, geom)
-                        ).contiguous()
+    table = fine_args[0]
+    grids = fine_grids(fine_args)
     p, c, h, w = planes_sr.shape
     n = grids.shape[1]
     out = kernels.plane_sample_forward(table, grids, c, align_corners=True,
@@ -890,13 +933,14 @@ def cubic_sampler_check(planes_sr, fine_args):
         fail("plane_sample_cubic_fwd: non-finite kernel output")
     err = (out - ref).abs()
     g4 = grids[:, None]
-    ms = cuda_ms(lambda: kernels.plane_sample_forward(
-        table, grids, c, align_corners=True, cubic=True), warmup=3, reps=20)
+    # kernel and library call: device-time medians of 25 in turns
+    ms, lib_ms = (ts[len(ts) // 2] for ts in interleaved_ms((
+        lambda: kernels.plane_sample_forward(table, grids, c,
+                                             align_corners=True, cubic=True),
+        lambda: F.grid_sample(planes_sr, g4, mode="bicubic",
+                              padding_mode="border", align_corners=True))))
     plain_ms = cuda_ms(lambda: ps.plane_sample_reference(
         table, grids, c, True, cubic=True), warmup=1, reps=3)
-    lib_ms = cuda_ms(lambda: F.grid_sample(
-        planes_sr, g4, mode="bicubic", padding_mode="border",
-        align_corners=True), warmup=3, reps=20)
     # per output value: 16 products, 12 sums, 4 roundings (the rows), 4
     # products and 3 sums (the y-combine)
     b_ms, b_by = bound(p * n * c * 4 + table_bytes_read(table, grids, True)
@@ -1632,13 +1676,62 @@ def flagship(dev):
             occ, ro, rd, rcfg)
 
 
+def sampler_times(dev, planes_lr, planes_sr, fine_args, box):
+    """The plane sampler's kernels through their public wrappers, beside
+    F.grid_sample (device-time medians of 25 in turns, interleaved_ms,
+    which the host's launch time cannot inflate): the
+    trainable forward and backward at the training coarse pass's shapes
+    (train_phase's first batch on 3x48x200^2 planes), the backward also on
+    a uniformly random copy of the grids, and the bicubic forward on the
+    fine pass's grids (800^2 planes) -> {name: ms}."""
+    import torch
+    import torch.nn.functional as F
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops.fused_render import build_plane_table
+    p, c, h, w = planes_lr.shape
+    rays, _ = train_batches(dev, camera([3.8, 0.5, 0.7]), TRAIN_FULL)()
+    grids = coarse_grids(rays, box, TRAIN_FULL["samples"])
+    n = grids.shape[1]
+    dout = torch.randn((p, n, c), generator=torch.Generator().manual_seed(
+        5)).to(dev)
+    rand_grids = torch.rand(grids.shape, generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev) * 2 - 1
+    table = build_plane_table(planes_lr)
+    x = planes_lr.detach().requires_grad_(True)
+    cot = dout.permute(0, 2, 1).reshape(p, c, 1, n).contiguous()
+
+    def lib(planes, g, mode):
+        return F.grid_sample(planes, g[:, None], mode=mode,
+                             padding_mode="border", align_corners=True)
+
+    with torch.enable_grad():
+        y = lib(x, grids, "bilinear")
+    fine = fine_grids(fine_args)
+    fns = {
+        "sample_fwd": lambda: kernels.plane_sample_forward(
+            table, grids, c, align_corners=True),
+        "sample_fwd_lib": lambda: lib(planes_lr, grids, "bilinear"),
+        "sample_bwd": lambda: kernels.plane_sample_backward(
+            dout, grids, h, w, align_corners=True),
+        "sample_bwd_random": lambda: kernels.plane_sample_backward(
+            dout, rand_grids, h, w, align_corners=True),
+        "sample_bwd_lib": lambda: torch.autograd.grad(
+            y, x, cot, retain_graph=True),
+        "cubic_fwd": lambda: kernels.plane_sample_forward(
+            fine_args[0], fine, c, align_corners=True, cubic=True),
+        "cubic_fwd_lib": lambda: lib(planes_sr, fine, "bicubic")}
+    return {name: ts[len(ts) // 2]
+            for name, ts in zip(fns, interleaved_ms(tuple(fns.values())))}
+
+
 def times_of(root):
     """--times-of ROOT: the decoder's kernels at the main path's shapes
-    (CUDA events, mean of 20 after 3 warm-ups), the row gather and
-    torch.index_select at gather_dma.py's workload (medians of 25 in
-    turns) and the flagship frame (median of 10) for the package under
-    ROOT, with no checks -> one JSON line. The cubic entries run on the
-    bilinear pass's points."""
+    (CUDA events, mean of 20 after 3 warm-ups) and the plane sampler's
+    (sampler_times), the row gather and torch.index_select at
+    gather_dma.py's workload (medians of 25 in turns), the flagship frame
+    and the same frame in bicubic with an f32 decoder (the cubic sampler
+    route; medians of 10) for the package under ROOT, with no checks ->
+    one JSON line. The cubic entries run on the bilinear pass's points."""
     import torch
     sys.path.insert(0, root)
     from nvsr_tpu_torch import kernels
@@ -1655,6 +1748,7 @@ def times_of(root):
         planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
         ca, fa = pass_args(cfg, dec_c, dec_f, planes_lr, planes_sr,
                            plane_view, box, occ, ro, rd)
+        out.update(sampler_times(dev, planes_lr, planes_sr, fa, box))
         for name, args, so, cubic in (
                 ("coarse", ca, True, False), ("fine", fa, False, False),
                 ("cubic_coarse", ca, True, True),
@@ -1691,6 +1785,16 @@ def times_of(root):
             tile=16).fine.rgb, reps=10)
         out["frame_median"], out["frame_min"], out["frame_max"] = (
             ts[len(ts) // 2], ts[0], ts[-1])
+        cfg32 = dataclasses.replace(cfg, plane_interp="bicubic",
+                                    compute_dtype=None)
+        pf_c = tiled_fn(dec_c, cfg32, planes_lr, plane_view, box, True)
+        pf_f = tiled_fn(dec_f, cfg32, planes_sr, plane_view, box, False)
+        ts = frame_ms(lambda: render_image(
+            pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
+            tile=16).fine.rgb, reps=10)
+        out["f32_bicubic_frame_median"] = ts[len(ts) // 2]
+        out["f32_bicubic_frame_min"] = ts[0]
+        out["f32_bicubic_frame_max"] = ts[-1]
     print(json.dumps(out))
 
 

@@ -136,7 +136,7 @@ plane_sample_cubic_fwd = CudaKernel(
     "plane_sample.cu", "plane_sample_cubic_fwd", _SAMPLE_FWD_ARGS)
 plane_sample_bwd = CudaKernel(
     "plane_sample.cu", "plane_sample_bwd",
-    [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+    [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
 fused_decode = CudaKernel(
     "fused_decode.cu", "fused_decode",
     [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P])
@@ -341,7 +341,8 @@ def plane_sample_backward(dout, grids, height: int, width: int, *,
                           align_corners: bool) -> torch.Tensor:
     """Launch plane_sample_bwd (csrc/plane_sample.cu) on the current
     stream: dout [P, N, C] f32 at grids [P, N, 2] -> dplanes [P, C, H, W]
-    f32, accumulated with atomics (summation order varies by run)."""
+    f32, summed per chunk of points in shared memory, then added with
+    atomics (summation order varies by run)."""
     dev = dout.device
     if dev.type != "cuda":
         raise ValueError("plane_sample_backward needs CUDA tensors")
@@ -350,13 +351,10 @@ def plane_sample_backward(dout, grids, height: int, width: int, *,
     _check(grids, "grids", torch.float32, dev, (p, n, 2), aligned=True)
     if p * n * c > _INT_MAX or p * height * width * c > _INT_MAX:
         raise ValueError("plane_sample_backward: tensors too large")
-    scratch = torch.empty((p, height, width, c), dtype=torch.float32,
-                          device=dev)
     out = torch.empty((p, c, height, width), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         plane_sample_bwd(dout.data_ptr(), grids.data_ptr(), p, n, c, height,
-                         width, int(align_corners), scratch.data_ptr(),
-                         out.data_ptr(), stream)
+                         width, int(align_corners), out.data_ptr(), stream)
     return out

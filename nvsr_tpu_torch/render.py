@@ -232,15 +232,21 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
     fine image of a coarse+fine render is unchanged."""
     from nvsr_tpu_torch.models.triplane import (apply_triplane_rays,
                                                 apply_triplane_rays_from_z,
-                                                make_rot_mats)
+                                                make_rot_mats, rot_mats_on)
     assert not (sigma_only and tile_train), \
         "sigma_only is an eval fast path; training needs coarse rgb"
+    # the box and the plane bases on the planes' device once, not a host
+    # copy (a stream wait) per call
+    box_dev = torch.as_tensor(box, dtype=torch.float32,
+                              device=planes_pos.device)
+    rot_dev = rot_mats if rot_mats is not None else rot_mats_on(
+        model_cfg.num_planes, planes_pos.device)
     if tile_rays is not None and tile_train:
         def point_fn(pts, rays, z_vals):
             return apply_triplane_rays_from_z(
-                params, model_cfg, planes_pos, plane_view, box,
+                params, model_cfg, planes_pos, plane_view, box_dev,
                 rays.origins, rays.directions, rays.viewdirs, z_vals,
-                member=member, rot_mats=rot_mats, trainable=True,
+                member=member, rot_mats=rot_dev, trainable=True,
                 noise_generator=noise_generator,
                 plane_resolution=plane_resolution)
 
@@ -263,9 +269,6 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
             geom = fused_render.geometry_args(
                 box, rot_mats if rot_mats is not None
                 else make_rot_mats(model_cfg.num_planes))
-        # the box on the planes' device once, not a host copy per block
-        box_dev = torch.as_tensor(box, dtype=torch.float32,
-                                  device=planes_pos.device)
 
         def point_fn(pts, rays, z_vals):
             return apply_triplane_rays_from_z(
@@ -282,8 +285,8 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
 
     def point_fn(pts, rays, z_vals):
         return apply_triplane_rays(
-            params, model_cfg, planes_pos, plane_view, box, pts,
-            rays.viewdirs, member=member, rot_mats=rot_mats,
+            params, model_cfg, planes_pos, plane_view, box_dev, pts,
+            rays.viewdirs, member=member, rot_mats=rot_dev,
             noise_generator=noise_generator,
             plane_resolution=plane_resolution, sigma_only=sigma_only)
 

@@ -131,44 +131,80 @@ def test_sigma_only_bit_identical_and_counted(device, cubic):
 
 # -- the trainable plane sampler (csrc/plane_sample.cu) -------------------
 # The forward repeats its plain version's rounding step for step: bit-equal.
-# The backward adds with atomics in an order that varies by run; its plain
-# version adds with index_add_: f32 summation order only, atol 1e-5 on
-# gradients of unit scale.
+# The backward sums each chunk of points in shared memory, then adds with
+# atomics, in an order that varies by run; its plain version adds with
+# index_add_: f32 summation order only, atol 1e-5 on gradients of unit
+# scale.
 
 
-def _sampler_inputs(device, P=3, C=48, H=37, W=29, N=5000, seed=0):
+def _sampler_inputs(device, P=3, C=48, H=37, W=29, N=5000, seed=0,
+                    coherent=False):
     from nvsr_tpu_torch.ops.fused_render import build_plane_table
     gen = torch.Generator().manual_seed(seed)
-    planes = torch.randn((P, C, H, W), generator=gen).to(device)
-    # a fifth of the points fall outside [-1, 1]: the border clamps
-    grids = (torch.rand((P, N, 2), generator=gen) * 2.5 - 1.25).to(device)
-    dout = torch.randn((P, N, C), generator=gen).to(device)
+    planes = torch.randn((P, C, H, W), generator=gen)
+    if coherent:
+        # tile-coherent, as training orders its points: each run of 1024
+        # points lies within +-2 cells of one centre (the chunk tables'
+        # worst contention: every point of a chunk on a few cells)
+        runs = (N + 1023) // 1024
+        centres = torch.rand((P, runs, 1, 2), generator=gen) * 2 - 1
+        jitter = (torch.rand((P, runs, 1024, 2), generator=gen) - 0.5) \
+            * torch.tensor([8.0 / W, 8.0 / H])
+        grids = (centres + jitter).reshape(P, runs * 1024, 2)[:, :N]
+        # ~160 taps land on each of those cells: dout / 8 keeps the
+        # gradients at the unit scale the 1e-5 tolerance assumes (the f32
+        # summation-order difference grows with the sums)
+        dscale = 0.125
+    else:
+        # uniform over 2.5x the plane: a fifth of the points fall outside
+        # [-1, 1] (the border clamps) and nearly every tap of a chunk has
+        # a cell of its own (the chunk tables at their fullest)
+        grids = torch.rand((P, N, 2), generator=gen) * 2.5 - 1.25
+        dscale = 1.0
+    dout = torch.randn((P, N, C), generator=gen) * dscale
+    planes, grids, dout = (t.contiguous().to(device)
+                           for t in (planes, grids, dout))
     return planes, build_plane_table(planes), grids, dout
 
 
+# (plane channels, channels sampled): C = 40 reads a 48-wide table; 8, 24,
+# 48 and 264 give 1, 3, 6 and 32 lanes a point; N = 5000 is no multiple of
+# a warp's batch of points
+@pytest.mark.parametrize("chans", [(48, 48), (48, 40), (8, 8), (24, 24),
+                                   (264, 264)])
 @pytest.mark.parametrize("cubic", [False, True])
 @pytest.mark.parametrize("align_corners", [True, False])
-def test_plane_sample_fwd_bit_equal(device, align_corners, cubic):
+def test_plane_sample_fwd_bit_equal(device, align_corners, cubic, chans):
     from nvsr_tpu_torch.ops import plane_sample as ps
-    planes, table, grids, _ = _sampler_inputs(device)
+    c, channels = chans
+    planes, table, grids, _ = _sampler_inputs(device, C=c)
     kern = kernels.plane_sample_cubic_fwd if cubic else \
         kernels.plane_sample_fwd
     before = kern.launches
-    out = kernels.plane_sample_forward(table, grids, planes.shape[1],
+    out = kernels.plane_sample_forward(table, grids, channels,
                                        align_corners=align_corners,
                                        cubic=cubic)
-    ref = ps.plane_sample_reference(table, grids, planes.shape[1],
-                                    align_corners, cubic)
+    ref = ps.plane_sample_reference(table, grids, channels, align_corners,
+                                    cubic)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert kern.launches == before + 1
 
 
+# tile-coherent grids (hot cells: a cell's taps split over many threads
+# and merged by the warp sum) and uniformly random ones (a cell per tap,
+# the tables at their fullest); any C (3 takes the 4-byte copies); P = 1
+# with N = 1023, no multiple of a chunk
+@pytest.mark.parametrize("shape", [(3, 5000, 37, 29), (1, 1023, 120, 90)])
+@pytest.mark.parametrize("c", [3, 16, 48, 64])
+@pytest.mark.parametrize("coherent", [False, True])
 @pytest.mark.parametrize("align_corners", [True, False])
-def test_plane_sample_bwd_matches_plain(device, align_corners):
+def test_plane_sample_bwd_matches_plain(device, align_corners, coherent, c,
+                                        shape):
     from nvsr_tpu_torch.ops import plane_sample as ps
-    planes, _, grids, dout = _sampler_inputs(device, seed=1)
-    _, c, h, w = planes.shape
+    p, n, h, w = shape
+    planes, _, grids, dout = _sampler_inputs(
+        device, P=p, C=c, H=h, W=w, N=n, seed=1, coherent=coherent)
     before = kernels.plane_sample_bwd.launches
     out = kernels.plane_sample_backward(dout, grids, h, w,
                                         align_corners=align_corners)

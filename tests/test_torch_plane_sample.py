@@ -193,3 +193,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.plane_sample_backward(torch.zeros((3, 5, 16)),
                                       torch.zeros((3, 5, 2)), 4, 4,
                                       align_corners=True)
+
+
+def test_kernel_wrappers_refuse_meta_tensors():
+    for cubic in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.plane_sample_forward(
+                torch.zeros((3, 4, 4, 16), dtype=torch.bfloat16,
+                            device="meta"),
+                torch.zeros((3, 5, 2), device="meta"), 16,
+                align_corners=True, cubic=cubic)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.plane_sample_backward(torch.zeros((3, 5, 3), device="meta"),
+                                      torch.zeros((3, 5, 2), device="meta"),
+                                      4, 4, align_corners=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.plane_sample_forward(torch.zeros((3, 4, 4, 16)),
+                                     torch.zeros((3, 5, 2)), 16,
+                                     align_corners=True, cubic=True)
+
+
+def test_cpu_plane_sample_never_reaches_kernels(rng, monkeypatch):
+    """PlaneSample on CPU tensors runs the plain versions, forward and
+    backward: the kernel wrappers and their launch counts are never
+    touched."""
+    def kernel(*args, **kw):
+        raise AssertionError("kernel wrapper reached from CPU tensors")
+
+    monkeypatch.setattr(kernels, "plane_sample_forward", kernel)
+    monkeypatch.setattr(kernels, "plane_sample_backward", kernel)
+    before = [k.launches for k in kernels.KERNELS]
+    planes = torch.tensor(rng.standard_normal((3, 8, 9, 7)),
+                          dtype=torch.float32, requires_grad=True)
+    grids = torch.tensor(rng.uniform(-1.2, 1.2, (3, 40, 2)),
+                         dtype=torch.float32)
+    out = ps.plane_sample(planes, grids)
+    (g,) = torch.autograd.grad(out.square().sum(), planes)
+    assert torch.isfinite(g).all() and g.shape == planes.shape
+    assert [k.launches for k in kernels.KERNELS] == before

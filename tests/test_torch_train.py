@@ -450,3 +450,46 @@ def test_stop_coarse_grad_and_materialize(rng):
                                np.asarray(jmat(jnp.asarray(f), 3)),
                                atol=1e-6)
     assert tmat(t(f), None).shape == f.shape
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_point_fns_hold_box_and_bases_on_device(rng, tiled):
+    """make_triplane_point_fn puts the box and the plane bases on the
+    planes' device once (no host copy per call): the trainable route and
+    the reference point fn give the outputs and gradients of the old
+    forms (a numpy box and no rot_mats handed down) bit for bit,
+    coordinate noise included."""
+    planes, ro, d, _ = _fixture(rng)
+    cfg = dataclasses.replace(port_cfg(JCFG), point_coords_noise=0.5)
+    dc = bridge.decoder_from_jax(_decoder(0), CPU)
+    rays = trender.make_ray_bundle(t(ro), t(d), 0.8, 3.2, use_viewdirs=True)
+    z = torch.linspace(0.8, 3.2, 8).expand(32, 8).contiguous()
+    pts = rays.origins[:, None] + rays.directions[:, None] * z[..., None]
+
+    def run(new):
+        pos = t(planes["pos"]).requires_grad_(True)
+        view = t(planes["view"]).requires_grad_(True)
+        gen = torch.Generator().manual_seed(3)
+        if new:
+            pf = trender.make_triplane_point_fn(
+                dc, cfg, pos, view, BOX2, noise_generator=gen,
+                plane_resolution=64,
+                **(dict(tile_rays=16, tile_train=True) if tiled else {}))
+            out = pf(pts, rays, z)
+        elif tiled:
+            out = ttri.apply_triplane_rays_from_z(
+                dc, cfg, pos, view, BOX2, rays.origins, rays.directions,
+                rays.viewdirs, z, trainable=True, noise_generator=gen,
+                plane_resolution=64)
+        else:
+            out = ttri.apply_triplane_rays(
+                dc, cfg, pos, view, BOX2, pts, rays.viewdirs,
+                noise_generator=gen, plane_resolution=64)
+        out = out[0] if tiled else out
+        grads = torch.autograd.grad(out.square().sum(), (pos, view))
+        return out, grads
+
+    (o_new, g_new), (o_old, g_old) = run(True), run(False)
+    assert torch.equal(o_new, o_old)
+    for a, b in zip(g_new, g_old):
+        assert torch.equal(a, b)
