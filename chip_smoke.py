@@ -2,8 +2,9 @@
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:  python3 chip_smoke.py  (add --profile to also trace one
-HR/SR and one LR training step, and one frame through each of the points
-and from-rays entries, with torch.profiler)
+HR/SR and one LR training step, one frame through each of the points
+and from-rays entries, and one Experiment eval view, with
+torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
@@ -60,7 +61,24 @@ Phases (any failure raises and the script exits non-zero):
      frame), and the two public ops that no render path calls, as in JAX
      (fused_decode on the fine pass's tap pairs, gather_rows_dma on its
      2x2-tap rows of one SR plane); the points-entry and from-rays frames
-     timed, median of 10 each.
+     timed, median of 10 each;
+  8. the Experiment's eval half, as `python -m nvsr_tpu_torch.cli
+     --config ... --eval images` drives it: a synthetic Blender-style
+     scene at 800x800 (train, val and two test views) written through
+     the port's PNG writer, and a logdir in the JAX package's layout at
+     TrainModels width (configs/TrainModels.yml as a dict: LR group
+     8,200,32, HR group 2,800,32 evaluated at 400x400, 4+4 decoders 128
+     wide, 3x48x200^2 planes, EDSR 256x32 x4 bf16, 16+16 samples, ray
+     blocks of 8192), random weights from seed 4, written with the port's
+     save_pickle and PlaneStore; then, with launch counts zeroed,
+     Experiment(cfg, eval_mode="images").run() on the card. Checks:
+     metrics.txt (the keys JAX writes for an SR group) and PNGs; the full
+     gather+decode entry launched exactly once per 8192-ray block per
+     pass, two renders per view (SR and no SR), no other kernel; the
+     plane SR once; the first view against the port's reference path on
+     the Experiment's own planes, SR planes, box and weights (>= 45 dB).
+     Prints the logdir load, plane SR set-up, eval per view and the two
+     renders of a view, in ms.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
@@ -78,6 +96,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1636,6 +1655,362 @@ def points_phase(dev, c2w, w=EVAL_FULL, on_card=True, profile=False):
     return entries
 
 
+def trainmodels_cfg(w, scene):
+    """configs/TrainModels.yml written out as a dict (so no YAML reader is
+    needed), its dataset cut to one synthetic scene: an LR group at
+    ds 2*sr_scale on res^2 planes, an HR group at ds 2 (the SR scene) and
+    the HR group as the eval set; the plane widths from `w`."""
+    from nvsr_tpu_torch.utils.config import CfgNode
+    lr_ds, s, res, vr = 2 * w["sr_scale"], w["sr_scale"], w["res"], \
+        w["view_res"]
+    lr_key, hr_key = f"{lr_ds},{res},{vr}", f"2,{res * s},{vr}"
+    return CfgNode({
+        "experiment": {"logdir": "logs/TrainModels", "randomseed": 0,
+                       "train_iters": 1500000,
+                       "validate_every": [0.1, 5000], "save_every": 10.0,
+                       "print_every": 100},
+        "dataset": {
+            "synt": {"root": "synt", "near": 2, "far": 6, "no_ndc": True},
+            "llff": {"root": "llff", "near": 0, "far": 1, "no_ndc": False},
+            "max_scenes_eval": 2,
+            "dir": {"train": {lr_key: [scene], hr_key: [scene]},
+                    "val": {hr_key: [scene]}},
+            "testskip": 10, "llffhold": 2},
+        "models": {
+            "coarse": {"type": "TwoDimPlanesModel",
+                       "plane_interp": "bilinear", "dec_density_layers": 4,
+                       "dec_rgb_layers": 4, "dec_channels": 128,
+                       "num_plane_channels": w["channels"],
+                       "rgb_dec_input": "projections",
+                       "proj_combination": "avg",
+                       "viewdir_proj_combination": "concat_pos",
+                       "align_corners": True, "skip_connect_every": 3},
+            "fine": {"type": "TwoDimPlanesModel"}},
+        "optimizer": {"type": "Adam", "lr": 5e-4},
+        "nerf": {
+            "use_viewdirs": True,
+            "train": {"what": ["LR_planes", "decoder", "SR"],
+                      "num_random_rays": 4096, "chunksize": 131072,
+                      "store_planes": {"steps_per_buffer": 200},
+                      "perturb": True, "num_coarse": 16, "num_fine": 16,
+                      "occupancy": {"enabled": True},
+                      "white_background": False,
+                      "im_inconsistency_loss_w": 0,
+                      "radiance_field_noise_std": 0.2, "lindisp": False},
+            "validation": {"chunksize": 131072, "perturb": False,
+                           "num_coarse": 16, "num_fine": 16,
+                           "white_background": False,
+                           "radiance_field_noise_std": 0.0,
+                           "lindisp": False, "eval_train_scenes": True}},
+        "super_resolution": {
+            "lr": 5e-5, "training": {"loss": "fine"},
+            "apply_2_coarse": False,
+            "model": {"type": "EDSR", "hidden_size": w["sr_hidden"],
+                      "n_blocks": w["sr_blocks"],
+                      "compute_dtype": "bfloat16"}}})
+
+
+def write_synthetic_scene(root, name, size, n_train=3, n_val=2, n_test=2,
+                          camera_angle_x=0.8):
+    """A Blender-style scene folder (transforms_{train,val,test}.json +
+    RGBA PNGs) with the layout of tests/helpers_synth.py, written through
+    the port's PNG writer: eyes on a circle of radius 4 at height 2,
+    gradient images with seeded noise -> the poses by split."""
+    import numpy as np
+    from nvsr_tpu_torch.utils import png
+    scene_dir = os.path.join(root, name)
+    counts = {"train": n_train, "val": n_val, "test": n_test}
+    angles = np.linspace(0, 2 * np.pi, sum(counts.values()), endpoint=False)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                         indexing="ij")
+    base = np.stack([xx, yy, 0.3 + 0.4 * xx * yy], -1)
+    idx, poses = 0, {}
+    for split, n in counts.items():
+        os.makedirs(os.path.join(scene_dir, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            a = angles[idx]
+            c2w = camera(4.0 * np.array([np.cos(a), np.sin(a), 0.5]))
+            rng = np.random.default_rng(idx)
+            img = np.clip(base + 0.05 * rng.standard_normal(base.shape), 0,
+                          1)
+            rgba = np.concatenate([img, np.ones_like(img[..., :1])], -1)
+            fpath = f"{split}/r_{i}"
+            png.imwrite(os.path.join(scene_dir, fpath + ".png"),
+                        (255 * rgba).astype(np.uint8))
+            frames.append({"file_path": fpath,
+                           "transform_matrix": c2w.tolist()})
+            idx += 1
+        with open(os.path.join(scene_dir, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames},
+                      f)
+        poses[split] = np.stack([np.asarray(fr["transform_matrix"],
+                                            np.float32) for fr in frames])
+    return poses
+
+
+def write_trained_logdir(root, cfg, w, poses, scene, lr_scene):
+    """A logdir in the JAX package's layout, as a TrainModels run leaves
+    it: checkpoint.ckpt_best (decoders, plane bases, models config),
+    SR_checkpoint.ckpt_best, exp_info.pkl and planes/coarse_<LR
+    scene>.planes_best (planes, box, occupied box), written with the
+    port's save_pickle and PlaneStore. Weights random from seed 4 through
+    the port's init functions (the density bias set to 1, so the field is
+    not empty); the box from calc_scene_box over the LR train and val
+    views, as the training run computes it."""
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig,
+                                                init_plane_sr_params)
+    from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
+                                                init_decoder_params,
+                                                make_rot_mats)
+    from nvsr_tpu_torch.ops.geometry import calc_scene_box
+    from nvsr_tpu_torch.planes_store import PlaneStore, create_scene_planes
+    from nvsr_tpu_torch.utils.io import save_pickle
+
+    def numpy_tree(tree):
+        if isinstance(tree, dict):
+            return {k: numpy_tree(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [numpy_tree(v) for v in tree]
+        return tree.numpy()
+
+    gen = torch.Generator().manual_seed(4)
+    mcfg = TriplaneConfig.from_cfg(cfg.models.coarse, cfg.nerf)
+    decs = [init_decoder_params(gen, mcfg, "cpu") for _ in range(2)]
+    for dec in decs:
+        dec["members"][0]["fc_alpha"]["b"].fill_(1.0)
+    sr_cfg = PlaneSRConfig.from_cfg(cfg.super_resolution, w["sr_scale"],
+                                    w["channels"], "bilinear", True)
+    sr = init_plane_sr_params(gen, sr_cfg, "cpu")
+    logdir = os.path.join(root, cfg.experiment["logdir"])
+    os.makedirs(os.path.join(logdir, "planes"))
+    save_pickle(os.path.join(logdir, "checkpoint.ckpt"), {
+        "model_coarse_state_dict": numpy_tree(decs[0]),
+        "model_fine_state_dict": numpy_tree(decs[1]),
+        "rot_mats": make_rot_mats(3),
+        "models_config": cfg.models.to_dict()}, suffix="ckpt", best=True)
+    save_pickle(os.path.join(logdir, "SR_checkpoint.ckpt"),
+                {"SR_model": numpy_tree(sr)}, suffix="ckpt", best=True)
+    save_pickle(os.path.join(logdir, "exp_info.pkl"), {
+        "start_i": 1, "eval_counter": 1, "best_loss": (0, 0.01),
+        "last_saved": {"decoder": [], "SR": []}})
+    lr_size = w["image"] // (2 * w["sr_scale"])
+    focal = 0.5 / np.tan(0.5 * 0.8) * lr_size
+    train_val = np.concatenate([poses["train"], poses["val"]])
+    box = calc_scene_box(
+        {"camera_poses": train_val[:, :3, :4], "near": 2, "far": 6,
+         "H": [lr_size] * len(train_val), "W": [lr_size] * len(train_val),
+         "f": [focal] * len(train_val)}, including_dirs=True, no_ndc=True)
+    planes = create_scene_planes(
+        gen, num_planes=3, num_channels=w["channels"],
+        resolution=w["res"], viewdir_resolution=w["view_res"],
+        viewdir_channels=w["channels"], init_std=0.03, box=box,
+        device="cpu")
+    planes.occ_aabb = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]],
+                               np.float32)
+    PlaneStore([os.path.join(logdir, "planes")]).save(lr_scene, planes,
+                                                      as_best=True)
+
+
+# the keys of metrics.txt that JAX's evaluate writes for an SR group
+SR_GROUP_METRICS = {"SR_psnr_gain", "im_inconsistency", "fine_psnr", "loss",
+                    "psnr", "ssim", "fine_loss"}
+
+
+def experiment_phase(dev, w=EVAL_FULL, on_card=True, profile=False):
+    """Phase 8 (see the module docstring): the Experiment's eval half on
+    a logdir in the JAX layout at TrainModels width. With on_card=False (a
+    CPU rehearsal at a small `w`) the tiled route is switched on by the
+    config (the CPU default is off) and runs the kernels' plain versions;
+    launch counts and timings are skipped. profile: one eval view's two
+    renders under torch.profiler, with their host waits."""
+    import tempfile
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import experiment, kernels
+    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
+    from nvsr_tpu_torch.planes_store import materialize_pos_planes
+    from nvsr_tpu_torch.render import render_image
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    scene = "lego"
+    lr_ds, s = 2 * w["sr_scale"], w["sr_scale"]
+    hr_scene = f"{scene}_DS2_PlRes{w['res'] * s}_{w['view_res']}"
+    lr_scene = f"{scene}_DS{lr_ds}_PlRes{w['res']}_{w['view_res']}"
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trainmodels_cfg(w, scene)
+        if not on_card:
+            cfg.nerf.validation["tiled_gather"] = True
+        t0 = time.perf_counter()
+        poses = write_synthetic_scene(os.path.join(root, "synt"), scene,
+                                      w["image"])
+        write_trained_logdir(root, cfg, w, poses, scene, lr_scene)
+        print(f"[experiment] {w['image']}^2 synthetic scene and a "
+              f"TrainModels-width logdir written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # the main path once, as `cli --eval images` drives it, with the
+        # counts zeroed just before; the plane SR and each render timed
+        # (each ended by a synchronize), and each view's data load (host)
+        sr_calls, renders, loads = [], [], []
+        real_sr = experiment.apply_plane_sr
+
+        def timed_sr(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = real_sr(*a, **kw)
+            sync()
+            sr_calls.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        experiment.apply_plane_sr = timed_sr
+        try:
+            for k in kernels.KERNELS:
+                k.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            exp = experiment.Experiment(
+                cfg, eval_mode="images", results_path="results",
+                root_path=root, device=dev)
+            exp.planes_buffer.draw_scenes()
+            sync()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            real_render, real_item = exp.render_eval_image, exp.dataset.item
+
+            def timed_item(index):
+                t = time.perf_counter()
+                out = real_item(index)
+                loads.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            def timed_render(scene_id, img_idx, skip_sr=False):
+                sync()
+                n_sr, n_ld = len(sr_calls), len(loads)
+                t = time.perf_counter()
+                out = real_render(scene_id, img_idx, skip_sr=skip_sr)
+                sync()
+                ms = (time.perf_counter() - t) * 1e3 - sum(
+                    sr_calls[n_sr:]) - sum(loads[n_ld:])
+                renders.append((img_idx, skip_sr, t, ms, out[0]))
+                return out
+
+            exp.render_eval_image = timed_render
+            exp.dataset.item = timed_item
+            exp.run()
+            sync()
+            t_end = time.perf_counter()
+            view_loads = list(loads)
+        finally:
+            experiment.apply_plane_sr = real_sr
+        launches = {k.symbol: k.launches for k in kernels.KERNELS}
+
+        # check 1: metrics.txt and PNGs for each eval sequence
+        for seq in exp.evaluation_sequences:
+            folder = os.path.join(exp.results_dir, seq)
+            with open(os.path.join(folder, "metrics.txt")) as f:
+                metrics = dict(line.rsplit(": ", 1) for line in f)
+            pngs = [fn for _, _, fs in os.walk(folder) for fn in fs
+                    if fn.endswith(".png")]
+            print(f"[experiment] {seq}: {len(pngs)} PNGs, metrics "
+                  f"{ {k: float(v) for k, v in metrics.items()} }")
+            keys = {k.split("/")[1] for k in metrics}
+            if keys != SR_GROUP_METRICS or not pngs:
+                fail(f"{seq}: metrics {sorted(keys)} (want "
+                     f"{sorted(SR_GROUP_METRICS)}), {len(pngs)} PNGs")
+        if exp.evaluation_sequences != [hr_scene]:
+            fail(f"eval sequences {exp.evaluation_sequences}")
+
+        # check 2: one launch of the full entry per 8192-ray block per
+        # pass (the eval coarse pass decodes in full, as JAX's), two
+        # renders per SR view, nothing else
+        views = [i for idx in exp.i_val.values() for i in idx]
+        expected = 0
+        for i in views:
+            h, wd = exp.dataset.hwfDs[i][:2]
+            th, tw = exp.eval_tile_shape()
+            rays = -(-h // th) * th * -(-wd // tw) * tw
+            blocks = -(-rays // exp._mode_render_cfg("validation",
+                                                     hr_scene).ray_block)
+            expected += 2 * 2 * blocks
+        want = {k.symbol: 0 for k in kernels.KERNELS}
+        want["triplane_render_full"] = expected
+        print(f"[experiment] {len(views)} views x 2 renders: launches "
+              f"{ {k: v for k, v in launches.items() if v} } (expected "
+              f"{ {k: v for k, v in want.items() if v} }, every other "
+              f"entry 0)")
+        if on_card and launches != want:
+            fail(f"Experiment eval launches {launches}, expected {want}")
+
+        # check 3: the plane SR ran once for the scene
+        print(f"[experiment] plane SR ran {len(sr_calls)} time(s)")
+        if len(sr_calls) != 1:
+            fail(f"the plane SR ran {len(sr_calls)} times, not once")
+
+        # check 4: the first view, Experiment (kernel) against the port's
+        # reference point fns on the Experiment's own planes, SR planes,
+        # box and weights, on the same rays (16x16 tiles, each sampling
+        # its hit rays' union interval)
+        with torch.no_grad():
+            planes = exp.planes_buffer.get(hr_scene)
+            pos = materialize_pos_planes(planes.planes_pos, planes.rank)
+            hr = apply_plane_sr(exp.sr_params, exp.sr_cfg, pos)
+            img, ro, rd, hwf = exp._view_rays(views[0])
+            ref = render_image(
+                reference_fn(exp.decoder_coarse, exp.model_cfg, pos,
+                             planes.plane_view, planes.box, False),
+                reference_fn(exp.decoder_fine, exp.model_cfg, hr,
+                             planes.plane_view, planes.box, False),
+                ro, rd, exp._mode_render_cfg("validation", hr_scene),
+                near=2.0, far=6.0, occ_aabb=planes.occ_aabb,
+                tile=exp.eval_tile_shape()).fine.rgb
+        mine = next(r[4].fine.rgb for r in renders
+                    if r[0] == views[0] and not r[1])
+        p_ref = psnr(mine, ref)
+        print(f"[experiment] view {views[0]}: Experiment (kernel) vs the "
+              f"reference path {p_ref:.2f} dB (min {GATE_PSNR_MIN_DB}); "
+              f"rgb mean {mine.mean().item():.4f}")
+        if not (torch.isfinite(mine).all()
+                and tuple(mine.shape) == tuple(img.shape[:2]) + (3,)
+                and p_ref >= GATE_PSNR_MIN_DB):
+            fail("the Experiment's render disagrees with the reference path")
+
+        if on_card:
+            # in view order; the first view builds the scene's point fns
+            # (plane tables, packed decoders) in its renders
+            starts = [r[2] for r in renders if not r[1]] + [t_end]
+            per_view = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+            frames = [sum(r[3] for r in renders if r[0] == i)
+                      for i in views]
+            print(f"[experiment] logdir load (config, dataset index, "
+                  f"checkpoints, planes to the card) {load_ms:.2f} ms; "
+                  f"plane SR set-up {sr_calls[0]:.2f} ms; eval per view "
+                  f"(first render to the next view's, the last with the "
+                  f"PNG and metrics writes) median "
+                  f"{statistics.median(per_view):.2f} ms of "
+                  f"{[round(t, 2) for t in per_view]}; data load (PNG "
+                  f"read and area resize) a view "
+                  f"{[round(t, 2) for t in view_loads]} ms; the two "
+                  f"renders of a view (SR and data load excluded) median "
+                  f"{statistics.median(frames):.2f} ms of "
+                  f"{[round(t, 2) for t in frames]}")
+        print(f"[experiment] phase in {time.perf_counter() - t_phase:.1f} "
+              f"s")
+        if profile:
+            exp.render_eval_image, exp.dataset.item = real_render, real_item
+            exp._last_view = None
+            profile_run("one Experiment eval view (two renders)",
+                        lambda: [exp.render_eval_image(hr_scene, views[-1],
+                                                       skip_sr=sk)
+                                 for sk in (False, True)])
+
+
 def flagship(dev):
     """bench.py's eval frame at TrainModels widths, weights random from
     seed 0 -> (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view,
@@ -1933,6 +2308,9 @@ def main(profile=False):
     # -- 7. the points entry ----------------------------------------------
     entries.update(points_phase(dev, camera([3.8, 0.5, 0.7]),
                                 profile=profile))
+
+    # -- 8. the Experiment's eval half ------------------------------------
+    experiment_phase(dev, profile=profile)
 
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (

@@ -12,5 +12,9 @@ the TPU gather+decode megakernel as the hand-written Hopper kernel
 TrainModels training step (`train.train_step`, its optimizers, the
 plane-SR backward with remat), with the trainable plane sampler's forward
 and backward as the Hopper kernels `csrc/plane_sample.cu` (host side in
-`ops/plane_sample.py`).
+`ops/plane_sample.py`); bicubic planes, the tiled points entry and the
+standalone decoder and row gather; and the Experiment's eval half
+(`experiment.Experiment`, `cli.py`, with copies of the JAX package's
+host modules in `utils/`, `data/` and `scenes.py`), which loads a logdir
+that the JAX package wrote and evaluates it through those kernels.
 """

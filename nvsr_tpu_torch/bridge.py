@@ -7,12 +7,11 @@ keeps the same nested layout with torch tensors, so nothing is reordered
 
 from __future__ import annotations
 
-import pickle
-
 import numpy as np
 import torch
 
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
+from nvsr_tpu_torch.utils.io import PortUnpickler
 
 
 def _to_torch(tree, device):
@@ -44,16 +43,13 @@ def planes_from_jax(tree, device="cuda"):
     return _to_torch(tree, device)
 
 
-class _GateUnpickler(pickle.Unpickler):
-    """Resolves the JAX TriplaneConfig to the port's mirror, so loading
-    the asset never imports nvsr_tpu (and hence JAX)."""
+class _GateUnpickler(PortUnpickler):
+    """Also resolves the JAX TriplaneConfig to the port's mirror, so
+    loading the asset never imports nvsr_tpu (and hence JAX)."""
 
     def find_class(self, module, name):
         if (module, name) == ("nvsr_tpu.models.triplane", "TriplaneConfig"):
             return TriplaneConfig
-        if module.split(".")[0] in ("nvsr_tpu", "jax", "jaxlib"):
-            raise pickle.UnpicklingError(
-                f"refusing to import {module}.{name} from the asset")
         return super().find_class(module, name)
 
 

@@ -261,3 +261,14 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
         out = out + std * torch.randn(out.shape, generator=generator,
                                       dtype=out.dtype, device=out.device)
     return out
+
+
+def sr_scale_factor(sf_config, coupler_ds_factor: int) -> int:
+    """The SR scale factor from the config: 'linear' -> the LR/HR
+    downsampling ratio, 'sqrt' -> its square root, else the integer
+    given."""
+    if sf_config == "linear":
+        return int(coupler_ds_factor)
+    if sf_config == "sqrt":
+        return int(np.sqrt(coupler_ds_factor))
+    return int(sf_config)

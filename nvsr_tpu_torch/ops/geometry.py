@@ -2,11 +2,14 @@
 
 Same numerics as the JAX module: unnormalized per-pixel ray directions
 with the sub-pixel downsampling offset, NDC reprojection, cartesian to
-(azimuth, elevation), and per-scene box normalization.
+(azimuth, elevation), and per-scene box normalization; and the
+host-side per-scene box (`calc_scene_box`, numpy, once per scene when
+the dataset is built).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,17 +27,29 @@ def _focal_y(focal):
     return focal
 
 
+def pixel_grid(height: int, width: int, downsampling_offset: float = 0.0,
+               padding_size: int = 0, dtype=torch.float32, device=None):
+    """Pixel-center coordinate maps (x_map, y_map), each [H+2p, W+2p],
+    x varying along the last axis."""
+    xs = torch.arange(width + 2 * padding_size, dtype=dtype,
+                      device=device) + downsampling_offset
+    ys = torch.arange(height + 2 * padding_size, dtype=dtype,
+                      device=device) + downsampling_offset
+    if padding_size > 0:
+        xs = xs - padding_size
+        ys = ys - padding_size
+    y_map, x_map = torch.meshgrid(ys, xs, indexing="ij")
+    return x_map, y_map
+
+
 def get_ray_bundle(height: int, width: int, focal, c2w: torch.Tensor,
                    downsampling_offset: float = 0.0):
     """Per-pixel ray origins and directions, each [H, W, 3] (directions
     are not normalized). c2w: [4, 4] or [3, 4] camera-to-world;
     downsampling_offset: the sub-pixel offset (d-1)/(2d) of a
     d-times-downsampled image."""
-    xs = torch.arange(width, dtype=c2w.dtype,
-                      device=c2w.device) + downsampling_offset
-    ys = torch.arange(height, dtype=c2w.dtype,
-                      device=c2w.device) + downsampling_offset
-    y_map, x_map = torch.meshgrid(ys, xs, indexing="ij")
+    x_map, y_map = pixel_grid(height, width, downsampling_offset,
+                              dtype=c2w.dtype, device=c2w.device)
     directions = torch.stack([
         (x_map - width * 0.5) / _focal_x(focal),
         -(y_map - height * 0.5) / _focal_y(focal),
@@ -93,3 +108,87 @@ def normalize_coords(coords, box):
     """Map [..., D] coords into [-1, 1] with a [2, D] (min, max) box."""
     box = torch.as_tensor(box, dtype=coords.dtype, device=coords.device)
     return 2.0 * (coords - box[:1]) / (box[1:] - box[:1]) - 1.0
+
+
+# ---------------------------------------------------------------------------
+# Host-side scene-box computation (numpy; runs once per scene at build time).
+# ---------------------------------------------------------------------------
+
+def _cart2az_el_np(d):
+    el = np.arctan2(d[2], np.sqrt(d[0] ** 2 + d[1] ** 2))
+    az = np.arctan2(d[1], d[0])
+    return np.array([az, el])
+
+
+def calc_scene_box(scene_geometry: dict, including_dirs: bool, no_ndc: bool,
+                   adjust_az_range=False, adjust_elevation_range=False,
+                   exhaustive_check: int = 10) -> np.ndarray:
+    """Axis-aligned bound of all frustum sample points at near/far.
+
+    scene_geometry: {'camera_poses': [F,3,4] (or [F,4,4]), 'near', 'far',
+    'H': [F], 'W': [F], 'f': [F] (scalar or [fx,fy] per frame)};
+    including_dirs also bounds (az, el): [-pi, pi] and [-pi/2, pi/2]
+    unless an adjustment is requested. Returns [2, 3(+2)] (min, max)
+    rows, from 12 pixels per image edge (exhaustive_check=10), as the
+    JAX function."""
+    def list2pix(end_pixels):
+        if exhaustive_check:
+            if exhaustive_check == -1:
+                return list(range(end_pixels[0], end_pixels[1]))
+            return np.unique(
+                np.round(np.linspace(end_pixels[0], end_pixels[1],
+                                     2 + exhaustive_check)).astype(int))
+        return end_pixels
+
+    poses = np.asarray(scene_geometry["camera_poses"])
+    dims = 3 + 2 * int(including_dirs)
+    box = [[np.finfo(np.float64).max, np.finfo(np.float64).min]
+           for _ in range(dims)]
+    for f_num in range(len(poses)):
+        pose = poses[f_num]
+        origin_ = pose[:3, -1]
+        H = scene_geometry["H"][f_num]
+        W = scene_geometry["W"][f_num]
+        focal = scene_geometry["f"][f_num]
+        for col in list2pix([0, W - 1]):
+            for row in list2pix([0, H - 1]):
+                coord = np.array([
+                    (col - W / 2) / _focal_x(focal),
+                    -(row - H / 2) / _focal_y(focal),
+                    -1.0,
+                ])
+                direction = np.sum(coord * pose[:3, :3], axis=-1)
+                normed_dir = direction / np.linalg.norm(direction)
+                if no_ndc:
+                    origin = origin_.copy()
+                    dir_ = direction
+                else:
+                    assert not isinstance(focal, (list, tuple)), \
+                        "anisotropic focal not supported with NDC"
+                    # f32, as the JAX function's jnp arrays
+                    o, d = ndc_rays(
+                        H, W, focal, 1.0,
+                        torch.as_tensor(origin_, dtype=torch.float32),
+                        torch.as_tensor(direction, dtype=torch.float32))
+                    origin, dir_ = o.numpy(), d.numpy()
+                for dist in (scene_geometry["near"], scene_geometry["far"]):
+                    point = origin + dist * dir_
+                    for d3 in range(3):
+                        box[d3][0] = min(box[d3][0], point[d3])
+                        box[d3][1] = max(box[d3][1], point[d3])
+                if including_dirs and (adjust_az_range
+                                       or adjust_elevation_range):
+                    az_el = _cart2az_el_np(normed_dir)
+                    for d2 in range(int(not adjust_az_range), 2):
+                        box[3 + d2][0] = min(box[3 + d2][0], az_el[d2])
+                        box[3 + d2][1] = max(box[3 + d2][1], az_el[d2])
+    if including_dirs:
+        if not adjust_az_range:
+            box[3] = [-np.pi, np.pi]
+        if not adjust_elevation_range:
+            box[4] = [-np.pi / 2, np.pi / 2]
+        else:
+            center = np.mean(box[4])
+            box[4] = list(adjust_elevation_range
+                          * (np.array(box[4]) - center) + center)
+    return np.array(box, dtype=np.float32).transpose(1, 0)

@@ -1,10 +1,12 @@
-"""Volume rendering (counterpart of nvsr_tpu/ops/rendering.py)."""
+"""Volume rendering and image metrics (counterpart of
+nvsr_tpu/ops/rendering.py)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 class RenderOutputs(NamedTuple):
@@ -81,3 +83,39 @@ def mse2psnr(mse):
     mse = torch.as_tensor(mse)
     mse = torch.where(mse == 0, torch.full_like(mse, 1e-5), mse)
     return -10.0 * torch.log10(mse)
+
+
+def _ssim_window(size: int = 11, sigma: float = 1.5, device=None):
+    x = torch.arange(size, dtype=torch.float32, device=device) \
+        - (size - 1) / 2.0
+    g = torch.exp(-(x * x) / (2.0 * sigma * sigma))
+    return g / torch.sum(g)
+
+
+def ssim(pred, target, data_range: float = 1.0, window_size: int = 11,
+         sigma: float = 1.5):
+    """Structural similarity of two [H, W, C] images: the single-scale
+    SSIM of the JAX function (11x11 Gaussian window, sigma 1.5, K1 0.01,
+    K2 0.03, 'valid' separable convolutions, mean over channels). An
+    image smaller than the window has no valid output: NaN, as there."""
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    p = torch.as_tensor(pred, dtype=torch.float32)
+    t = torch.as_tensor(target, dtype=torch.float32, device=p.device)
+    if min(p.shape[0], p.shape[1]) < window_size:
+        return torch.tensor(float("nan"), device=p.device)
+    win = _ssim_window(window_size, sigma, p.device)
+
+    def blur(img):
+        x = img.permute(2, 0, 1)[:, None]                 # [C, 1, H, W]
+        x = F.conv2d(x, win.reshape(1, 1, -1, 1))
+        x = F.conv2d(x, win.reshape(1, 1, 1, -1))
+        return x[:, 0]                                    # [C, H', W']
+
+    mu_p, mu_t = blur(p), blur(t)
+    var_p = blur(p * p) - mu_p * mu_p
+    var_t = blur(t * t) - mu_t * mu_t
+    cov = blur(p * t) - mu_p * mu_t
+    num = (2.0 * mu_p * mu_t + c1) * (2.0 * cov + c2)
+    den = (mu_p * mu_p + mu_t * mu_t + c1) * (var_p + var_t + c2)
+    return torch.mean(num / den)

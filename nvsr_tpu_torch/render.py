@@ -33,10 +33,39 @@ class RenderConfig:
     white_background: bool = False
     radiance_field_noise_std: float = 0.0
     use_viewdirs: bool = True
+    # mip-NeRF conical frustums (the baseline model's encode_position_fn
+    # 'mip'); not ported yet
+    mip: bool = False
     stop_coarse_grad: bool = False
     ray_block: int = 4096          # rays per render block
     # keep per-sample z in RenderOutputs.z_vals
     keep_z: bool = False
+
+    def __post_init__(self):
+        if self.mip:
+            raise NotImplementedError(
+                "mip rendering (RenderConfig.mip) is not ported yet: "
+                "ROADMAP Queue 1 #5, the baseline")
+
+    @classmethod
+    def from_cfg(cls, mode_cfg, nerf_cfg, **overrides) -> "RenderConfig":
+        """From a `nerf.train` / `nerf.validation` section and the `nerf`
+        section: a block holds chunksize // 16 rays (at least 1024), as
+        in the JAX package."""
+        kw = dict(
+            num_coarse=mode_cfg.get("num_coarse", 64),
+            num_fine=mode_cfg.get("num_fine", 64),
+            perturb=bool(mode_cfg.get("perturb", False)),
+            lindisp=mode_cfg.get("lindisp", False),
+            white_background=mode_cfg.get("white_background", False),
+            radiance_field_noise_std=mode_cfg.get(
+                "radiance_field_noise_std", 0.0),
+            use_viewdirs=nerf_cfg.get("use_viewdirs", True),
+            mip=nerf_cfg.get("encode_position_fn", None) == "mip",
+            ray_block=max(1024, mode_cfg.get("chunksize", 65536) // 16),
+        )
+        kw.update(overrides)
+        return cls(**kw)
 
 
 class RayBundle(NamedTuple):

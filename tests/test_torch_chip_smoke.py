@@ -73,3 +73,15 @@ def test_points_phase_rehearses_on_the_cpu():
                  sr_blocks=1, sr_scale=2, reps=1)
     assert cs.points_phase("cpu", cs.camera([3.8, 0.5, 0.7]), w=small,
                            on_card=False) == {}
+
+
+def test_experiment_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's Experiment phase on the CPU at a tiny size: the
+    synthetic scene and the JAX-layout logdir written by the port, the
+    eval-mode Experiment on them through the tiled route's plain versions
+    (metrics.txt keys and PNGs, the plane SR once, the first view against
+    the reference path >= 45 dB)."""
+    cs = _chip_smoke()
+    small = dict(image=32, channels=8, res=6, view_res=4, sr_hidden=4,
+                 sr_blocks=1, sr_scale=2, reps=1)
+    assert cs.experiment_phase("cpu", w=small, on_card=False) is None
