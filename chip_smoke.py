@@ -3,8 +3,8 @@
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:  python3 chip_smoke.py  (add --profile to also trace one
 HR/SR and one LR training step, one frame through each of the points
-and from-rays entries, and one Experiment eval view, with
-torch.profiler)
+and from-rays entries, one Experiment eval view, and one LR and one
+HR/SR Experiment iteration, with torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
   1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
@@ -78,7 +78,24 @@ Phases (any failure raises and the script exits non-zero):
      plane SR once; the first view against the port's reference path on
      the Experiment's own planes, SR planes, box and weights (>= 45 dB).
      Prints the logdir load, plane SR set-up, eval per view and the two
-     renders of a view, in ms.
+     renders of a view, in ms;
+  9. the Experiment's training half, as `python -m nvsr_tpu_torch.cli
+     --config ...` drives it: the synthetic scene of phase 8 (its own val
+     views the eval set), TrainModels width (configs/TrainModels.yml as a
+     dict: 4096 rays, 16+16 samples, surface occupancy,
+     nerf.train.tiled_gather on), trained from scratch with counts zeroed
+     just before: 8 iterations, an evaluate at the first and the last,
+     a save every 4; then a resume to 12. Checks: every flushed loss
+     finite; plane_sample_fwd and plane_sample_bwd launched once per
+     iteration on the trainable route and triplane_render_full once per
+     8192-ray block per pass of each evaluate's renders, no other entry;
+     the rolling and best checkpoints, SR checkpoints, exp_info.pkl and
+     the plane files with their Adam leaves; a committed occupied box
+     inside the scene box; an eval view on the trained planes against
+     the reference path (>= 45 dB); the resume at the saved start_i with
+     every parameter and Adam state bit-equal to the first run's. Prints
+     the LR and HR/SR iteration ms, save_checkpoints, evaluate and the
+     resume's load ms, and the phase's seconds.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
@@ -523,7 +540,8 @@ def profile_run(label, fn):
     """fn() once under torch.profiler: its kernels by device time, device
     time against wall time (the profiler slows the host, not the device),
     and the host's waits on the device (HOST_WAITS: after each, the host
-    queues no work until the device has drained)."""
+    queues no work until the device has drained). Returns their counts
+    by call (the profiler's own synchronize included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -549,6 +567,7 @@ def profile_run(label, fn):
     for e in kern[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    return {k: n for k, (n, _) in waits.items()}
 
 
 def train_batches(dev, c2w, w):
@@ -594,11 +613,13 @@ def coarse_grids(rays, box, samples):
     return project_to_planes(xyz, make_rot_mats(3)).contiguous()
 
 
-def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
+def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False,
+                host_waits=None):
     """Phase 5 (see the module docstring). With on_card=False (a CPU
     rehearsal at a small `w`) the kernel checks and launch counts are
     skipped and every step runs the plain versions. profile: after the
-    phase, one HR/SR and one LR step under torch.profiler."""
+    phase, one HR/SR and one LR step under torch.profiler, their host
+    waits recorded in `host_waits` by kind."""
     import contextlib
 
     import numpy as np
@@ -750,7 +771,10 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False):
     if profile:
         for kind in ("HR/SR", "LR"):
             rays, tgt = batch()
-            profile_run(f"{kind} step", lambda: step(kind, rays, tgt, 20))
+            n = profile_run(f"{kind} step", lambda: step(kind, rays, tgt,
+                                                          20))
+            if host_waits is not None:
+                host_waits[kind] = n
     return entries
 
 
@@ -1815,6 +1839,40 @@ def write_trained_logdir(root, cfg, w, poses, scene, lr_scene):
                                                       as_best=True)
 
 
+def reference_check(tag, exp, scene, view, mine):
+    """An Experiment's SR render `mine` of `view` (through the kernels)
+    against the port's reference point fns on the Experiment's own
+    planes, SR planes, box, occupied box and weights, on the same rays
+    (16x16 tiles, each sampling its hit rays' union interval): finite, of
+    the view's shape, >= GATE_PSNR_MIN_DB."""
+    import torch
+    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
+    from nvsr_tpu_torch.planes_store import materialize_pos_planes
+    from nvsr_tpu_torch.render import render_image
+    with torch.no_grad():
+        planes = exp.planes_buffer.get(scene)
+        pos = materialize_pos_planes(planes.planes_pos, planes.rank)
+        hr = apply_plane_sr(exp.sr_params, exp.sr_cfg, pos)
+        img, ro, rd, hwf = exp._view_rays(view)
+        ref = render_image(
+            reference_fn(exp.decoder_coarse, exp.model_cfg, pos,
+                         planes.plane_view, planes.box, False),
+            reference_fn(exp.decoder_fine, exp.model_cfg, hr,
+                         planes.plane_view, planes.box, False),
+            ro, rd, exp._mode_render_cfg("validation", scene),
+            near=2.0, far=6.0, occ_aabb=planes.occ_aabb,
+            tile=exp.eval_tile_shape()).fine.rgb
+    p_ref = psnr(mine, ref)
+    print(f"[{tag}] view {view}: Experiment (kernel) vs the reference "
+          f"path {p_ref:.2f} dB (min {GATE_PSNR_MIN_DB}); rgb mean "
+          f"{mine.mean().item():.4f}")
+    if not (torch.isfinite(mine).all()
+            and tuple(mine.shape) == tuple(img.shape[:2]) + (3,)
+            and p_ref >= GATE_PSNR_MIN_DB):
+        fail(f"[{tag}] the Experiment's render disagrees with the "
+             f"reference path")
+
+
 # the keys of metrics.txt that JAX's evaluate writes for an SR group
 SR_GROUP_METRICS = {"SR_psnr_gain", "im_inconsistency", "fine_psnr", "loss",
                     "psnr", "ssim", "fine_loss"}
@@ -1831,9 +1889,6 @@ def experiment_phase(dev, w=EVAL_FULL, on_card=True, profile=False):
     import numpy as np
     import torch
     from nvsr_tpu_torch import experiment, kernels
-    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
-    from nvsr_tpu_torch.planes_store import materialize_pos_planes
-    from nvsr_tpu_torch.render import render_image
 
     def sync():
         if on_card:
@@ -1954,32 +2009,10 @@ def experiment_phase(dev, w=EVAL_FULL, on_card=True, profile=False):
             fail(f"the plane SR ran {len(sr_calls)} times, not once")
 
         # check 4: the first view, Experiment (kernel) against the port's
-        # reference point fns on the Experiment's own planes, SR planes,
-        # box and weights, on the same rays (16x16 tiles, each sampling
-        # its hit rays' union interval)
-        with torch.no_grad():
-            planes = exp.planes_buffer.get(hr_scene)
-            pos = materialize_pos_planes(planes.planes_pos, planes.rank)
-            hr = apply_plane_sr(exp.sr_params, exp.sr_cfg, pos)
-            img, ro, rd, hwf = exp._view_rays(views[0])
-            ref = render_image(
-                reference_fn(exp.decoder_coarse, exp.model_cfg, pos,
-                             planes.plane_view, planes.box, False),
-                reference_fn(exp.decoder_fine, exp.model_cfg, hr,
-                             planes.plane_view, planes.box, False),
-                ro, rd, exp._mode_render_cfg("validation", hr_scene),
-                near=2.0, far=6.0, occ_aabb=planes.occ_aabb,
-                tile=exp.eval_tile_shape()).fine.rgb
+        # reference path
         mine = next(r[4].fine.rgb for r in renders
                     if r[0] == views[0] and not r[1])
-        p_ref = psnr(mine, ref)
-        print(f"[experiment] view {views[0]}: Experiment (kernel) vs the "
-              f"reference path {p_ref:.2f} dB (min {GATE_PSNR_MIN_DB}); "
-              f"rgb mean {mine.mean().item():.4f}")
-        if not (torch.isfinite(mine).all()
-                and tuple(mine.shape) == tuple(img.shape[:2]) + (3,)
-                and p_ref >= GATE_PSNR_MIN_DB):
-            fail("the Experiment's render disagrees with the reference path")
+        reference_check("experiment", exp, hr_scene, views[0], mine)
 
         if on_card:
             # in view order; the first view builds the scene's point fns
@@ -2009,6 +2042,264 @@ def experiment_phase(dev, w=EVAL_FULL, on_card=True, profile=False):
                         lambda: [exp.render_eval_image(hr_scene, views[-1],
                                                        skip_sr=sk)
                                  for sk in (False, True)])
+
+
+def experiment_train_phase(dev, w=TRAIN_FULL, on_card=True, profile=False,
+                           card="", host_waits=None):
+    """Phase 9 (see the module docstring): the Experiment's training half
+    at TrainModels width, as `python -m nvsr_tpu_torch.cli --config ...`
+    drives it, then a resume. With on_card=False (a CPU rehearsal at a
+    small `w`) every step and render runs the plain versions; launch
+    counts and timings are skipped. profile: one LR and one HR/SR
+    Experiment iteration under torch.profiler, their host waits printed
+    beside the bare step's (`host_waits`, from phase 5). `card`: the
+    card's name and power limit, printed with every time."""
+    import tempfile
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import experiment, kernels
+    from nvsr_tpu_torch.planes_store import PlaneStore
+    from nvsr_tpu_torch.utils.io import load_pickle
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn, log):
+        def wrapper(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            log.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    t_phase = time.perf_counter()
+    scene = "lego"
+    lr_ds, s = 2 * w["sr_scale"], w["sr_scale"]
+    hr_scene = f"{scene}_DS2_PlRes{w['res'] * s}_{w['view_res']}"
+    lr_scene = f"{scene}_DS{lr_ds}_PlRes{w['res']}_{w['view_res']}"
+    first_iters, resume_iters = 8, 12
+    with tempfile.TemporaryDirectory() as root:
+        cfg = trainmodels_cfg(w, scene)
+        # the cuts (listed in the output): 8 iterations, then a resume to
+        # 12; an eval at the first and at the last iteration of each run;
+        # a save every 4 iterations; every iteration's metrics flushed;
+        # occupancy boxes from iteration 2 on, every 2 iterations
+        cfg.experiment.update(validate_every=1000, save_every=4,
+                              print_every=1)
+        # training refuses an eval set that overlaps the training scenes:
+        # the scene's own val views are the eval set (both groups, each
+        # also on its train views, eval_train_scenes)
+        cfg.dataset["dir"]["val"] = {}
+        cfg.nerf.train["occupancy"] = {"enabled": True, "warmup_iters": 2,
+                                       "update_every": 2}
+        # the trainable route (as phase 5 and bench.py): the shipped YAML
+        # leaves it off, and then no training step runs a kernel
+        cfg.nerf.train["tiled_gather"] = True
+        cfg.nerf.train["num_random_rays"] = w["rays"]
+        cfg.nerf.train["num_coarse"] = cfg.nerf.train["num_fine"] = \
+            w["samples"]
+        if not on_card:
+            cfg.nerf.validation["tiled_gather"] = True
+        t0 = time.perf_counter()
+        write_synthetic_scene(os.path.join(root, "synt"), scene, w["image"])
+        print(f"[train-exp] cuts: one synthetic {w['image']}^2 scene (LR "
+              f"group ds {lr_ds} on {w['res']}^2 planes, HR/SR group ds 2, "
+              f"both evaluated on their val and train views), "
+              f"{first_iters} iterations then a "
+              f"resume to {resume_iters}, an eval at each run's first and "
+              f"last iteration, save_every 4, print_every 1, occupancy "
+              f"warmup_iters 2 / update_every 2; scene written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # the main path once, with the counts zeroed just before
+        iters, saves, evals, losses = [], [], [], []
+
+        def instrument(exp):
+            real_iter = exp.train_iteration
+
+            def iteration(i):
+                sync()
+                t = time.perf_counter()
+                out = real_iter(i)
+                sync()
+                # (sr_iter, consistency_iter, ms) of the iteration
+                iters.append((exp._pending_metrics[-1][2],
+                              exp._pending_metrics[-1][1],
+                              (time.perf_counter() - t) * 1e3))
+                return out
+
+            real_scalar = exp.logger.write_scalar
+
+            def write_scalar(name, value, index):
+                if name == "train/loss":
+                    losses.append(value)
+                return real_scalar(name, value, index)
+
+            exp.train_iteration = iteration
+            exp.logger.write_scalar = write_scalar
+            exp.save_checkpoints = timed(exp.save_checkpoints, saves)
+            exp.evaluate = timed(exp.evaluate, evals)
+            return exp
+
+        for k in kernels.KERNELS:
+            k.launches = 0
+        exp = instrument(experiment.Experiment(cfg, root_path=root,
+                                               device=dev))
+        exp.run(max_iters=first_iters)
+        sync()
+        launches = {k.symbol: k.launches for k in kernels.KERNELS}
+
+        # check 1: every flushed loss finite
+        print(f"[train-exp] losses {[round(v, 6) for v in losses]}")
+        if len(losses) != first_iters or not np.all(np.isfinite(losses)):
+            fail(f"flushed losses {losses}")
+
+        # check 2: launches. The trainable sampler: one forward and one
+        # backward per iteration whose coarse pass takes the trainable
+        # route (every iteration but a consistency one); the fused entry:
+        # per evaluate, one view per eval sequence, two renders (SR and no
+        # SR) for a view of an SR scene and one otherwise, two passes per
+        # render, one launch per 8192-ray block
+        trainable = sum(1 for _, cons, _ in iters if not cons)
+        blocks = 0
+        for idx in exp.i_val.values():
+            h, wd = exp.dataset.hwfDs[idx[0]][:2]
+            th, tw = exp.eval_tile_shape()
+            rays = -(-h // th) * th * -(-wd // tw) * tw
+            renders = 2 if exp.dataset.per_im_scene_id[idx[0]] in \
+                exp.scene_coupler.downsample_couples else 1
+            blocks += renders * 2 * -(-rays // exp._mode_render_cfg(
+                "validation", hr_scene).ray_block)
+        want = {k.symbol: 0 for k in kernels.KERNELS}
+        want["plane_sample_fwd"] = want["plane_sample_bwd"] = trainable
+        want["triplane_render_full"] = len(evals) * blocks
+        print(f"[train-exp] {len(iters)} iterations ({trainable} through "
+              f"the trainable route), {len(evals)} evaluates of "
+              f"{list(exp.i_val)} ({blocks} launches each): launches "
+              f"{ {k: v for k, v in launches.items() if v} }"
+              f" (expected { {k: v for k, v in want.items() if v} }, every "
+              f"other entry 0)")
+        if on_card and launches != want:
+            fail(f"Experiment training launches {launches}, expected {want}")
+
+        # check 3: the logdir in the JAX layout
+        logdir = exp.logdir
+        files = sorted(os.listdir(logdir))
+        plane_files = sorted(os.listdir(os.path.join(logdir, "planes")))
+        print(f"[train-exp] logdir {files}; planes {plane_files}")
+        need = {f"checkpoint{first_iters - 1:05d}.ckpt",
+                f"SR_checkpoint{first_iters - 1:05d}.ckpt",
+                "checkpoint.ckpt_best", "SR_checkpoint.ckpt_best",
+                "exp_info.pkl", "time_sig.txt"}
+        need_planes = {f"coarse_{lr_scene}.planes",
+                       f"coarse_{lr_scene}.planes_best"}
+        if not need <= set(files) or not need_planes <= set(plane_files):
+            fail(f"logdir misses {sorted(need - set(files))} "
+                 f"{sorted(need_planes - set(plane_files))}")
+        stored, adam = PlaneStore([os.path.join(logdir, "planes")]).load(
+            lr_scene, with_opt_state=True)
+        ckpt = load_pickle(os.path.join(
+            logdir, f"checkpoint{first_iters - 1:05d}.ckpt"), suffix="ckpt")
+        if adam is None or int(np.asarray(adam.count).reshape(-1)[0]) \
+                != first_iters or "optimizer" not in ckpt:
+            fail("the plane file or the checkpoint lacks its Adam state")
+
+        # check 4: a committed occupied box inside the scene box
+        planes = exp.planes_buffer.get(lr_scene)
+        occ, box = planes.occ_aabb, np.asarray(planes.box)
+        print(f"[train-exp] occupied box "
+              f"{None if occ is None else occ.tolist()} in the scene box "
+              f"{box[:, :3].tolist()}")
+        if occ is None or not (np.all(occ[0] >= box[0, :3])
+                               and np.all(occ[1] <= box[1, :3])
+                               and np.all(occ[0] < occ[1])):
+            fail("no occupied box committed inside the scene box")
+
+        # check 5: an evaluate view on the trained planes through the
+        # kernels against the reference path
+        with torch.no_grad():
+            view = exp.i_val[hr_scene][0]
+            exp._eval_pf_cache = {}
+            mine = exp.render_eval_image(hr_scene, view)[0].fine.rgb
+        reference_check("train-exp", exp, hr_scene, view, mine)
+
+        # check 6: the resume starts at the saved start_i, with every
+        # parameter and Adam state equal to the first run's, bit for bit
+        def state_of(e):
+            out = {"decoder": e.decoder_opt.params,
+                   "decoder_adam": e.decoder_opt.state[0],
+                   "sr": e.sr_opt.params, "sr_adam": e.sr_opt.state[0]}
+            for sc, p in e.planes_buffer.resident.items():
+                out[sc] = p.params()
+                out[sc + "_adam"] = e.planes_buffer.opt.state(sc)
+            return out
+
+        def flat(tree):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in flat(tree[k])]
+            if isinstance(tree, (list, tuple)):
+                return [x for v in tree for x in flat(v)]
+            # the native plane store keeps a 0-d array as shape (1,)
+            return [(torch.as_tensor(np.asarray(tree)) if not
+                     torch.is_tensor(tree) else tree.detach().cpu()
+                     ).reshape(-1)]
+
+        before = state_of(exp)
+        cfg.experiment["train_iters"] = resume_iters
+        sync()
+        t0 = time.perf_counter()
+        exp2 = experiment.Experiment(cfg, load_checkpoint="resume",
+                                     root_path=root, device=dev)
+        exp2.planes_buffer.draw_scenes()
+        sync()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        after = state_of(exp2)
+        same = {k: len(flat(before[k])) == len(flat(after.get(k, {})))
+                and all(torch.equal(a, b) for a, b in zip(
+                    flat(before[k]), flat(after[k]))) for k in before}
+        print(f"[train-exp] resume: start_i "
+              f"{exp2.experiment_info['start_i']} (saved {first_iters}); "
+              f"loaded equal to the first run's {same}")
+        if exp2.experiment_info["start_i"] != first_iters \
+                or not all(same.values()):
+            fail("the resume did not load what the first run saved")
+        n_first = len(losses)
+        instrument(exp2).run()
+        sync()
+        if len(losses) - n_first != resume_iters - first_iters \
+                or not np.all(np.isfinite(losses)):
+            fail(f"the resumed run's losses {losses[n_first:]}")
+
+        if on_card:
+            def med(xs):
+                return statistics.median(xs) if xs else float("nan")
+            lr = [ms for sr, _, ms in iters if not sr]
+            hr = [ms for sr, _, ms in iters if sr]
+            print(f"[train-exp] on {card}: iteration ms (each between two "
+                  f"synchronizes, its metrics flushed): HR/SR median "
+                  f"{med(hr):.2f} of {[round(x, 2) for x in hr]}; LR median "
+                  f"{med(lr):.2f} of {[round(x, 2) for x in lr]}; "
+                  f"save_checkpoints ms {[round(x, 2) for x in saves]}; "
+                  f"evaluate ms {[round(x, 2) for x in evals]}; resume "
+                  f"load {resume_ms:.2f} ms")
+        print(f"[train-exp] phase in {time.perf_counter() - t_phase:.1f} s"
+              f"{f' on {card}' if card else ''}")
+        if profile:
+            # the iteration itself, without the timing's synchronizes
+            step = experiment.Experiment.train_iteration
+            for label, sc in (("LR", lr_scene), ("HR/SR", hr_scene)):
+                idx = exp2.i_train[sc][0]
+                exp2.image_sampler.sample = lambda sc=sc, idx=idx: (sc, idx)
+                step(exp2, resume_iters)
+                n = profile_run(f"one {label} Experiment iteration",
+                                lambda: step(exp2, resume_iters + 1))
+                print(f"[train-exp] on {card}: host waits of one {label} "
+                      f"Experiment iteration {n}, of the bare {label} "
+                      f"train_step (phase 5) "
+                      f"{(host_waits or {}).get(label, 'not profiled')}")
 
 
 def flagship(dev):
@@ -2299,8 +2590,9 @@ def main(profile=False):
             fail("gate scene check failed")
 
     # -- 5. training ------------------------------------------------------
+    host_waits = {}
     entries.update(train_phase(dev, camera([3.8, 0.5, 0.7]),
-                               profile=profile))
+                               profile=profile, host_waits=host_waits))
 
     # -- 6. bicubic planes ------------------------------------------------
     entries.update(bicubic_phase(dev, camera([3.8, 0.5, 0.7])))
@@ -2311,6 +2603,10 @@ def main(profile=False):
 
     # -- 8. the Experiment's eval half ------------------------------------
     experiment_phase(dev, profile=profile)
+
+    # -- 9. the Experiment's training half --------------------------------
+    experiment_train_phase(dev, profile=profile, card=card,
+                           host_waits=host_waits)
 
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (

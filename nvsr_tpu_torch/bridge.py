@@ -1,8 +1,11 @@
-"""Weights and scenes carried across from the JAX package.
+"""Weights and scenes carried across between the JAX package and the port.
 
 The JAX package stores parameters as pytrees with numpy leaves; the port
 keeps the same nested layout with torch tensors, so nothing is reordered
-(decoder weights stay [in, out], EDSR conv weights stay OIHW).
+(decoder weights stay [in, out], EDSR conv weights stay OIHW). The
+`*_from_jax` functions read such a tree into tensors on a device; the
+`*_to_jax` functions turn the port's trees back into numpy trees in the
+JAX layout, as its checkpoints hold them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,37 @@ def planes_from_jax(tree, device="cuda"):
     """A scene's plane dict {"pos": [P, C, H, W], "view": [Cv, Hv, Wv]?}
     -> the same dict of f32 tensors on `device`."""
     return _to_torch(tree, device)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_to_numpy(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def decoder_to_jax(tree):
+    """A decoder pytree of tensors -> the same structure of numpy arrays
+    (the checkpoints' model_coarse_state_dict / model_fine_state_dict)."""
+    return _to_numpy(tree)
+
+
+def plane_sr_to_jax(tree):
+    """Plane-SR params of tensors -> numpy (the checkpoints' SR_model)."""
+    return _to_numpy(tree)
+
+
+def optimizer_state_to_jax(state):
+    """An optimizer state in optax.adam's layout (ModuleOptimizer.state:
+    the utils.io stand-ins of ScaleByAdamState and EmptyState, tensor
+    moments) -> the same NamedTuples with numpy leaves; utils.io.
+    save_pickle writes them under optax's names."""
+    return _to_numpy(state)
 
 
 class _GateUnpickler(PortUnpickler):

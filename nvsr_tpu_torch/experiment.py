@@ -1,15 +1,25 @@
-"""The experiment runner, eval half (counterpart of nvsr_tpu/experiment.py).
+"""The experiment runner (counterpart of nvsr_tpu/experiment.py).
 
-`Experiment(cfg, eval_mode="images")` builds what the JAX Experiment
-builds for one config -- dataset, scene coupler, eval tags, best-loss
-groups, decoders, plane SR, planes store and buffer -- loads a trained
-logdir that the JAX package wrote, as it is, and `run()` evaluates every
-view of it, writing `metrics.txt` and PNGs per eval sequence as JAX's
-`evaluate` does. The logdir is the bridge: pickled numpy pytrees
-(`checkpoint*.ckpt[_best]`, `SR_checkpoint*.ckpt[_best]`,
-`exp_info.pkl`) and plane files (`planes/coarse_<scene>.planes[_best]`);
-parameters go to the port through `bridge.decoder_from_jax` and
-`bridge.plane_sr_from_jax`.
+`Experiment(cfg)` builds what the JAX Experiment builds for one config --
+dataset, scene coupler, eval tags, best-loss groups, decoders, plane SR,
+optimizers, planes store and buffer -- and `run()` trains it as JAX's
+does: per iteration one view's pixels (random, tile-major with
+`nerf.train.tiled_gather`, or LR-patch-aligned on consistency
+iterations), one `train.train_step`, the gated optimizer steps with
+virtual batches, the planes' Adam through the buffer, occupancy updates;
+around them the validation cadence, buffer redraws, the plateau
+scheduler, rolling and best checkpoints, preemption (`time_sig.txt`),
+resume and early stop. With `eval_mode="images"` it evaluates a trained
+logdir instead, writing `metrics.txt` and PNGs per eval sequence as JAX's
+`evaluate` does.
+
+The logdir is the bridge both ways: pickled numpy pytrees
+(`checkpoint*.ckpt[_best]`, `SR_checkpoint*.ckpt[_best]`, with the
+optimizers' state in optax's layout, and `exp_info.pkl`) and plane files
+(`planes/coarse_<scene>.planes[_best]`, with each scene's Adam state);
+parameters go to the port through `bridge.*_from_jax` and back through
+`bridge.*_to_jax`. A logdir that either package wrote is resumed by the
+other.
 
 On a CUDA device the eval renders take the tiled route by default, as
 the JAX package does on a TPU: the fused gather+decode kernel
@@ -18,9 +28,17 @@ bf16 substitution, else the eval plane sampler kernel with the plain
 decoder. `nerf.validation.tiled_gather` overrides the default either
 way. On the CPU the same routes run the kernels' plain versions.
 
-Not ported yet, each raising NotImplementedError: training (`run()`
-outside eval mode, `models.coarse.plane_stats`), ROADMAP Queue 1 #3; the
-baseline NeRF model, #5; `experiment.data_parallel`, #6.
+Training draws its random numbers as JAX's does where they are host
+draws (one numpy Generator, in the same order: the scene and image
+samplers, the pixel chooser, the ensemble member); the device draws
+(jitter, density, SR and point noise) come from a torch.Generator on the
+device in the JAX key's place. Metrics stay on the device until
+`flush_train_metrics` fetches a print window's in one copy; a view's
+pose, pixel indices and target go to the card through pinned memory,
+without a host wait.
+
+Not ported yet, each raising NotImplementedError: the baseline NeRF
+model, ROADMAP Queue 1 #5; `experiment.data_parallel`, #6.
 """
 
 from __future__ import annotations
@@ -41,9 +59,11 @@ from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig, apply_plane_sr,
                                             sr_scale_factor)
 from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
                                             init_decoder_params,
-                                            make_rot_mats)
+                                            make_density_fn, make_rot_mats,
+                                            project_to_planes)
 from nvsr_tpu_torch.ops.fused_decoder import HALF
-from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+from nvsr_tpu_torch.ops.geometry import get_ray_bundle, normalize_coords
+from nvsr_tpu_torch.ops.occupancy import estimate_occupied_box
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr, ssim
 from nvsr_tpu_torch.ops.resize import image_inconsistency_loss
@@ -51,15 +71,22 @@ from nvsr_tpu_torch.planes_store import (PlaneStore, PlanesBuffer,
                                          create_scene_planes,
                                          decoder_tied_init_std,
                                          materialize_pos_planes)
-from nvsr_tpu_torch.render import (RenderConfig, make_triplane_point_fn,
-                                   render_image)
+from nvsr_tpu_torch.render import (RenderConfig, build_sampled_rays,
+                                   make_triplane_point_fn, render_image,
+                                   tighten_bundle)
 from nvsr_tpu_torch.scenes import (Counter, ImageSampler, SceneCoupler,
+                                   extract_ds_and_res, get_plane_name,
                                    get_scene_configs, subsample_eval_scenes)
-from nvsr_tpu_torch.train import ModuleOptimizer
+from nvsr_tpu_torch.train import (ModuleOptimizer, PlateauScheduler,
+                                  StepFlags, choose_patch_pixels,
+                                  choose_random_pixels, choose_tile_pixels,
+                                  train_step)
 from nvsr_tpu_torch.utils.config import (CfgNode,
                                          assert_compatible_model_config,
                                          get_config)
-from nvsr_tpu_torch.utils.io import load_pickle
+from nvsr_tpu_torch.utils.coverage import PlaneCoverage
+from nvsr_tpu_torch.utils.io import (check_run_signature, load_pickle,
+                                     save_pickle)
 from nvsr_tpu_torch.utils.logging import ExperimentLogger, RunningScores
 
 RUNNING_MEAN_LOGS = ["psnr", "SR_psnr_gain", "planes_SR", "fine_loss",
@@ -94,9 +121,10 @@ def find_latest_checkpoint(ckpt_path: str, sr: bool,
 
 
 class Experiment:
-    """Builds the system for one config and evaluates a trained logdir.
-    `device` is where the models, planes and renders live: the card
-    unless the caller names another (the tests pass "cpu")."""
+    """Builds the system for one config and trains it, or evaluates a
+    trained logdir. `device` is where the models, planes, optimizer
+    states and renders live: the card unless the caller names another
+    (the tests pass "cpu")."""
 
     def __init__(self, cfg: CfgNode, *, load_checkpoint: str = "",
                  eval_mode: str = None, results_path: str = None,
@@ -121,10 +149,6 @@ class Experiment:
             raise NotImplementedError(
                 "the baseline NeRF model is not ported yet: ROADMAP "
                 "Queue 1 #5")
-        if cfg.get_path("models.coarse.plane_stats", False):
-            raise NotImplementedError(
-                "models.coarse.plane_stats (plane coverage histograms) is "
-                "not ported yet: ROADMAP Queue 1 #3")
         self.what2train = list(cfg.get_path("nerf.train.what", []))
         assert all(m in ("LR_planes", "decoder", "SR")
                    for m in self.what2train)
@@ -345,7 +369,7 @@ class Experiment:
 
         # --- RNG: numpy for the host samplers; torch generators in place
         # of JAX keys, one on the host for parameter init and one on the
-        # device for render draws
+        # device for the training steps' and renders' draws
         seed = cfg.experiment.get("randomseed", 0)
         self.host_rng = np.random.default_rng(seed)
         self.generator = torch.Generator().manual_seed(seed)
@@ -361,14 +385,19 @@ class Experiment:
             self._load_checkpoints()
         self._build_planes()
 
+        # SR input normalization from the corpus planes' statistics,
+        # written into the SR net's norm tensors in place (the SR
+        # optimizer holds them)
         if (self.sr_experiment and self.sr_params is not None
                 and cfg.get_path("super_resolution.input_normalization",
                                  False)
                 and not self.resume_experiment and "norm" in self.sr_params):
-            raise NotImplementedError(
-                "SR input normalization from corpus plane statistics "
-                "(training from scratch) is not ported yet: ROADMAP "
-                "Queue 1 #3")
+            stats = self.planes_buffer.get_plane_stats(
+                viewdir=cfg.get_path("super_resolution.SR_viewdir", False))
+            with torch.no_grad():
+                for k in ("mean", "std"):
+                    self.sr_params["norm"][k].copy_(torch.as_tensor(
+                        stats[k], dtype=torch.float32))
 
         # --- samplers / logging / experiment info ------------------------
         self.image_sampler = ImageSampler(self.i_train, ds.scene_probs,
@@ -396,7 +425,13 @@ class Experiment:
             if running_state:
                 self.running.load_state_dict(running_state)
         self.saved_target_ims = {v: set() for v in set(self.val_strings)}
-        self._occ_dev = {}
+        self._dev_cache = {}
+        self._pending_metrics = []
+        self._occ_last_update = {}
+        self._occ_window = {}
+        self._plane_coverage = None
+        self.virtual_batch_size = cfg.get_path(
+            "nerf.train.virtual_batch_size", 1)
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -472,8 +507,28 @@ class Experiment:
                                 cfg.get_path("optimizer.lr", 5e-4)))
 
     # ------------------------------------------------------------------
-    # checkpoints (the optimizers' states are the training half's)
+    # checkpoints
     # ------------------------------------------------------------------
+    def _decoder_state(self):
+        state = {"model_coarse_state_dict":
+                 bridge.decoder_to_jax(self.decoder_coarse)}
+        if self.decoder_fine is not None:
+            state["model_fine_state_dict"] = bridge.decoder_to_jax(
+                self.decoder_fine)
+        state["rot_mats"] = np.asarray(self.rot_mats)
+        state["models_config"] = self.cfg.get("models", CfgNode()).to_dict()
+        if self.decoder_opt is not None:
+            state["optimizer"] = bridge.optimizer_state_to_jax(
+                self.decoder_opt.state)
+        return state
+
+    def _sr_state(self):
+        state = {"SR_model": bridge.plane_sr_to_jax(self.sr_params)}
+        if self.sr_opt is not None:
+            state["SR_optimizer"] = bridge.optimizer_state_to_jax(
+                self.sr_opt.state)
+        return state
+
     def _load_checkpoints(self):
         load_best = self.eval_mode or not self.resume_experiment
         cfg = self.cfg
@@ -495,6 +550,11 @@ class Experiment:
                                    if path.endswith("_best") else "ckpt")
                 self.sr_params = bridge.plane_sr_from_jax(ckpt["SR_model"],
                                                           self.device)
+                if self.sr_opt is not None:
+                    self.sr_opt = ModuleOptimizer(self.sr_params,
+                                                  lr=self.sr_opt.lr)
+                    if "SR_optimizer" in ckpt:
+                        self.sr_opt.state = ckpt["SR_optimizer"]
                 self.sr_checkpoint_source = path
 
         if (self.load_checkpoint == ""
@@ -526,6 +586,44 @@ class Experiment:
                                   make_rot_mats(self.model_cfg.num_planes)):
                 raise ValueError(f"{path}: its plane bases are not "
                                  f"make_rot_mats({self.model_cfg.num_planes})")
+        if self.decoder_opt is not None:
+            params = {"dc": self.decoder_coarse}
+            if not self.share_coarse_fine and self.decoder_fine is not None:
+                params["df"] = self.decoder_fine
+            self.decoder_opt = ModuleOptimizer(params, lr=self.decoder_opt.lr)
+            if "optimizer" in ckpt:
+                # a state of another structure (e.g. a checkpoint without
+                # the fine decoder's) is not restored, as in JAX
+                try:
+                    self.decoder_opt.state = ckpt["optimizer"]
+                except (KeyError, IndexError, ValueError):
+                    pass
+
+    def save_checkpoints(self, iteration: int, as_best: bool = False):
+        """Rolling checkpoints (the last one of each model kept), the best
+        ones with as_best, and exp_info.pkl; the run's signature is
+        checked first, so a newer run on the same logdir stops this one
+        here."""
+        check_run_signature(self.logdir, self.run_time_signature)
+        self.experiment_info["running_scores"] = self.running.state_dict()
+        for model in self._models_to_save():
+            prefix = "SR_checkpoint" if model == "SR" else "checkpoint"
+            state = self._sr_state() if model == "SR" \
+                else self._decoder_state()
+            name = os.path.join(self.logdir,
+                                f"{prefix}{iteration:05d}.ckpt")
+            save_pickle(name, state, suffix="ckpt")
+            hist = self.experiment_info["last_saved"].setdefault(model, [])
+            if hist:
+                old = hist.pop(0)
+                if os.path.exists(old):
+                    os.remove(old)
+            hist.append(name)
+            if as_best:
+                save_pickle(os.path.join(self.logdir, f"{prefix}.ckpt"),
+                            state, suffix="ckpt", best=True)
+        save_pickle(self.experiment_info_file, self.experiment_info,
+                    suffix="pkl")
 
     # ------------------------------------------------------------------
     # planes
@@ -582,6 +680,16 @@ class Experiment:
                     box=self.coords_normalization[scene], device="cpu")
                 self.store.save(scene, planes)
 
+        # the planes' plateau lr scheduler, stepped at print cadence
+        self.planes_lr_scheduler = None
+        sched = cfg.get_path("optimizer.lr_scheduler", None)
+        if sched is not None and not self.eval_mode:
+            patience = int(np.ceil(sched["patience"]
+                                   / cfg.experiment.get("print_every", 100)))
+            self.planes_lr_scheduler = PlateauScheduler(
+                lr=cfg.get_path("optimizer.planes_lr",
+                                cfg.get_path("optimizer.lr", 1e-3)),
+                patience=patience, factor=sched["factor"])
         store_opts = cfg.get_path("nerf.train.store_planes", CfgNode())
         self.planes_buffer = PlanesBuffer(
             self.store, self.training_scenes or list(self.i_val.keys()),
@@ -658,9 +766,34 @@ class Experiment:
     def eval_tile_shape(self):
         """(th, tw) image-tile shape of tiled eval renders
         (nerf.validation.tile_shape, e.g. '16x16' / '8' / '8x16')."""
-        spec = str(self.cfg.get_path("nerf.validation.tile_shape", "16x16"))
+        return self._parse_tile_shape("nerf.validation.tile_shape", "16x16")
+
+    def _parse_tile_shape(self, cfg_key: str, default: str):
+        spec = str(self.cfg.get_path(cfg_key, default))
         th, _, tw = spec.partition("x")
         return int(th), int(tw or th)
+
+    def train_tile_shape(self):
+        """(th, tw) image-tile shape of tile-coherent training batches
+        (nerf.train.tile_shape)."""
+        return self._parse_tile_shape("nerf.train.tile_shape", "8x8")
+
+    def train_tile_cfg(self, scene_id: str, num_rays: int):
+        """TileSamplerConfig of the trainable route when it is asked for
+        (nerf.train.tiled_gather: true; off by default, as in JAX, since
+        it changes which pixels a batch holds) and the geometry qualifies
+        (bilinear planes, <= 64 channels, a batch of whole tiles), else
+        None. The coarse pass's plane gathers then run the trainable
+        plane sampler's kernels in both directions."""
+        if not self.cfg.get_path("nerf.train.tiled_gather", False):
+            return None
+        if (self.model_cfg.plane_interp != "bilinear"
+                or self.model_cfg.num_plane_channels > HALF):
+            return None
+        th, tw = self.train_tile_shape()
+        if num_rays % (th * tw):
+            return None
+        return TileSamplerConfig(tile_rays=th * tw)
 
     def eval_tile_cfg(self, scene_id: str):
         """TileSamplerConfig of the tiled eval route when the geometry
@@ -697,20 +830,29 @@ class Experiment:
         self._last_view = (img_idx, view)
         return view
 
+    def _on_device(self, kind: str, scene_id: str, array):
+        """A scene's host array (its box, its occupied box) on the device.
+        The copy is kept per scene with the array it was made from, and
+        made again once the scene holds another array
+        (PlanesBuffer.set_occ_aabb stores a new occupied box), so an
+        update reaches the next step and render, and an unchanged array
+        costs no copy: a copy from pageable memory makes the host wait
+        for the stream."""
+        key = (kind, self.scene_coupler.scene2saved.get(scene_id, scene_id))
+        cached = self._dev_cache.get(key)
+        if cached is None or cached[0] is not array:
+            cached = (array, torch.as_tensor(np.asarray(array),
+                                             dtype=torch.float32,
+                                             device=self.device))
+            self._dev_cache[key] = cached
+        return cached[1]
+
     def _occ_aabb_for(self, scene_id, planes):
-        """The scene's occupied box on the device (copied once per
-        scene, so an update of the box must drop its entry), or None
-        without occupancy bounds."""
-        occ = self.cfg.get_path("nerf.train.occupancy", None)
-        if not occ or not occ.get("enabled", True) \
-                or planes.occ_aabb is None:
+        """The scene's occupied box on the device, or None without
+        occupancy bounds."""
+        if self.occupancy_cfg is None or planes.occ_aabb is None:
             return None
-        saved = self.scene_coupler.scene2saved.get(scene_id, scene_id)
-        if saved not in self._occ_dev:
-            self._occ_dev[saved] = torch.as_tensor(
-                np.asarray(planes.occ_aabb), dtype=torch.float32,
-                device=self.device)
-        return self._occ_dev[saved]
+        return self._on_device("occ_aabb", scene_id, planes.occ_aabb)
 
     @torch.no_grad()
     def render_eval_image(self, scene_id: str, img_idx: int,
@@ -724,6 +866,9 @@ class Experiment:
             scene_id.replace("_train", ""), "synt")
         sc_cfg = self.cfg.dataset[scene_type]
         rcfg = self._mode_render_cfg("validation", scene_id)
+        if self.cfg.get_path("models.coarse.plane_stats", False):
+            self._update_plane_coverage(scene_id, planes, ro, rd, sc_cfg,
+                                        rcfg)
         # "kernel or reference", no ladder: the JAX package escalates an
         # overflowing view from its tiled kernel to compact tiles and then
         # to its XLA path, with a time probe between them, because its TPU
@@ -739,6 +884,313 @@ class Experiment:
                            tile=self.eval_tile_shape() if tiled else None,
                            generator=self.render_generator)
         return out, img
+
+    # ------------------------------------------------------------------
+    # occupancy-guided sampling bounds
+    # ------------------------------------------------------------------
+    @property
+    def occupancy_cfg(self):
+        """nerf.train.occupancy {enabled, mode, grid, threshold,
+        alpha_eps, weight_eps, margin, margin_steps, sigma_k,
+        warmup_iters, update_every} with JAX's defaults, or None when
+        occupancy bounds are off. Each trained scene's occupied box is
+        estimated while training (mode "surface": from the rendering
+        weights' moments; "density": by thresholding the density field on
+        a grid) and tightens every ray's [near, far] in training and
+        eval."""
+        if not hasattr(self, "_occ_cfg"):
+            occ = self.cfg.get_path("nerf.train.occupancy", None)
+            if not occ or not occ.get("enabled", True):
+                self._occ_cfg = None
+            else:
+                self._occ_cfg = {
+                    "mode": occ.get("mode", "surface"),
+                    "grid": occ.get("grid", 64),
+                    "threshold": occ.get("threshold", "auto"),
+                    "alpha_eps": occ.get("alpha_eps", 0.01),
+                    "weight_eps": occ.get("weight_eps", 0.01),
+                    "margin": occ.get("margin", 1.0),
+                    "margin_steps": occ.get("margin_steps", 3.0),
+                    "sigma_k": occ.get("sigma_k", 4.0),
+                    "warmup_iters": occ.get("warmup_iters", 300),
+                    "update_every": occ.get("update_every", 200),
+                }
+        return self._occ_cfg
+
+    def _sample_step(self, scene_id: str) -> float:
+        """(far - near) / samples per ray of the scene's training
+        renders: one sampling step."""
+        scene_type = self.dataset.scene_types.get(
+            scene_id.replace("_train", ""), "synt")
+        sc_cfg = self.cfg.dataset[scene_type]
+        rcfg = self._mode_render_cfg("train", scene_id)
+        return (float(sc_cfg["far"]) - float(sc_cfg["near"])) / max(
+            rcfg.num_coarse + rcfg.num_fine, 1)
+
+    def _maybe_update_occupancy(self, scene_id: str, iteration: int):
+        occ = self.occupancy_cfg
+        if occ is None or not self.planes_buffer.optimize:
+            return
+        if iteration < occ["warmup_iters"]:
+            return
+        last = self._occ_last_update.get(scene_id)
+        if last is not None and iteration - last < occ["update_every"]:
+            return
+        self._occ_last_update[scene_id] = iteration
+        if occ["mode"] == "surface":
+            self._commit_surface_aabb(scene_id, occ)
+            return
+        planes = self.planes_buffer.get(scene_id)
+        pos = materialize_pos_planes(planes.planes_pos, planes.rank)
+        box = self._on_device("box", scene_id, planes.box)
+        density = make_density_fn(self.decoder_coarse, self.model_cfg, pos,
+                                  box)
+        thr = occ["threshold"]
+        if thr in (None, "auto"):
+            # alpha = 1 - exp(-sigma*dt) > alpha_eps  =>  sigma > eps/dt
+            # (to first order): the contribution floor of one sample
+            thr = float(occ["alpha_eps"]) / max(self._sample_step(scene_id),
+                                                1e-6)
+        with torch.no_grad():
+            aabb = estimate_occupied_box(density, box, grid=occ["grid"],
+                                         threshold=thr, margin=occ["margin"])
+        self.planes_buffer.set_occ_aabb(scene_id, aabb.cpu().numpy())
+
+    def _commit_surface_aabb(self, scene_id: str, occ: dict):
+        """Surface-mode occupancy update from the window's rendering-mass
+        moments (surf_w, surf_wx, surf_wx2 of each train_step with
+        flags.track_surface_aabb, kept on the device and fetched here in
+        one copy): per axis, mean +- sigma_k * std, plus margin_steps
+        sampling steps, clipped to the scene box."""
+        window = self._occ_window.get(scene_id)
+        if not window:
+            return
+        stats = torch.stack([torch.stack(w) for w in window]).cpu().numpy()
+        self._occ_window[scene_id] = []
+        sw = stats[:, 0].sum(axis=0)
+        swx = stats[:, 1].sum(axis=0)
+        swx2 = stats[:, 2].sum(axis=0)
+        if not np.all(sw > 1e-3):    # no rendering mass observed yet
+            return
+        mean = swx / sw
+        var = np.maximum(swx2 / sw - mean * mean, 0.0)
+        k = float(occ.get("sigma_k", 4.0))
+        lo = mean - k * np.sqrt(var)
+        hi = mean + k * np.sqrt(var)
+        box = np.asarray(self.planes_buffer.get(scene_id).box)
+        m = float(occ["margin_steps"]) * self._sample_step(scene_id)
+        lo = np.maximum(lo - m, box[0, :3])
+        hi = np.minimum(hi + m, box[1, :3])
+        self.planes_buffer.set_occ_aabb(
+            scene_id, np.stack([lo, hi]).astype(np.float32))
+
+    def _scene_plane_res(self, scene_id: str):
+        """The scene's plane resolution, for point_coords_noise (parsed
+        from the scene id, else the configured one); None when the noise
+        is off."""
+        if not self.cfg.get_path("nerf.train.point_coords_noise", 0):
+            return None
+        res = extract_ds_and_res(scene_id)[1]
+        if res is None:
+            res = self.scene_id_plane_resolution.get(scene_id, (None,))[0]
+        return res
+
+    # ------------------------------------------------------------------
+    # training iteration
+    # ------------------------------------------------------------------
+    def _to_device(self, array):
+        """A host array on the Experiment's device. On a card the copy is
+        staged in pinned memory and does not block: a copy from pageable
+        memory makes the host wait for the stream."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def train_iteration(self, iteration: int):
+        """One training iteration: draw a view and its pixels, one
+        train_step, the planes' Adam step, the gated decoder and SR
+        steps at the end of a virtual batch. The metrics are queued on
+        the device. Returns the buffer's new scenes when it was redrawn,
+        else None."""
+        cfg = self.cfg
+        first_vb = iteration % self.virtual_batch_size == 0
+        last_vb = (iteration % self.virtual_batch_size
+                   == self.virtual_batch_size - 1)
+        scene_id, img_idx = self.image_sampler.sample()
+        sr_iter = scene_id in self.scene_coupler.downsample_couples
+        img, pose, h, w, focal, ds_f = self.dataset.item(img_idx)
+        consistency_iter = bool(self.im_inconsistency_loss_w) and \
+            scene_id in self.dataset.val_only_scene_ids
+        coupler_ds = self.scene_coupler.ds_factor
+        if consistency_iter:
+            # the HR scene's rays, averaged over ds x ds patches, against
+            # its LR couple's pixels
+            h, w, focal = h * coupler_ds, w * coupler_ds, focal * coupler_ds
+            ds_f = ds_f // coupler_ds
+        num_rays = cfg.get_path("nerf.train.num_random_rays", 4096)
+        train_tc = None if consistency_iter \
+            else self.train_tile_cfg(scene_id, num_rays)
+        if consistency_iter:
+            rows, cols, target = choose_patch_pixels(
+                self.host_rng, img, num_rays, coupler_ds)
+        elif train_tc is not None:
+            rows, cols, target = choose_tile_pixels(
+                self.host_rng, img, num_rays, tile=self.train_tile_shape())
+        else:
+            rows, cols, target = choose_random_pixels(
+                self.host_rng, img, num_rays)
+        scene_type = self.dataset.scene_types.get(scene_id, "synt")
+        sc_cfg = cfg.dataset[scene_type]
+        focal_arg = (tuple(float(f) for f in focal)
+                     if isinstance(focal, (tuple, list, np.ndarray))
+                     else float(focal))
+        rays = build_sampled_rays(
+            self._to_device(np.asarray(pose, dtype=np.float32)),
+            self._to_device(rows), self._to_device(cols), float(h),
+            float(w), focal_arg, downsampling_offset(ds_f),
+            float(sc_cfg["near"]), float(sc_cfg["far"]),
+            use_viewdirs=cfg.nerf.get("use_viewdirs", True),
+            no_ndc=bool(sc_cfg["no_ndc"]))
+        target = self._to_device(np.asarray(target, dtype=np.float32))
+
+        if first_vb:
+            if self.decoder_opt is not None:
+                self.decoder_opt.zero()
+            if self.sr_opt is not None:
+                self.sr_opt.zero()
+
+        rcfg = self._mode_render_cfg("train", scene_id)
+        member = int(self.host_rng.integers(self.model_cfg.ensemble_size))
+        self._maybe_update_occupancy(scene_id, iteration)
+        planes = self.planes_buffer.get(scene_id)
+        occ_aabb = self._occ_aabb_for(scene_id, planes)
+        if occ_aabb is not None:
+            rays = tighten_bundle(
+                rays, occ_aabb,
+                tile_rays=train_tc.tile_rays if train_tc is not None
+                else None)
+        sr_loss_cfg = cfg.get_path("super_resolution.training.loss",
+                                   "fine") if self.sr_experiment else "both"
+        trains_lr = any(m in self.what2train for m in ("decoder",
+                                                       "LR_planes"))
+        occ = self.occupancy_cfg
+        flags = StepFlags(
+            sr_iter=sr_iter and self.sr_params is not None,
+            consistency_iter=consistency_iter,
+            detach_lr_planes=cfg.get_path("nerf.train.detach_LR_planes",
+                                          False),
+            apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse", False),
+            compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
+            compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
+            rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
+            im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
+            ds_factor=coupler_ds,
+            share_coarse_fine=self.share_coarse_fine,
+            member=member,
+            plane_rank=planes.rank,
+            plane_resolution=self._scene_plane_res(scene_id),
+            train_planes=self.planes_buffer.optimize,
+            train_decoder=self.decoder_opt is not None,
+            train_sr=self.sr_opt is not None,
+            track_surface_aabb=(occ is not None and occ["mode"] == "surface"
+                                and self.planes_buffer.optimize),
+            surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
+            tile_cfg=train_tc)
+        metrics, grads = train_step(
+            self.decoder_coarse, self.decoder_fine, self.sr_params,
+            planes.params(), self._on_device("box", scene_id, planes.box),
+            rays, target, self.render_generator,
+            model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
+            flags=flags)
+        if flags.track_surface_aabb:
+            # device tensors, fetched in one copy at the commit
+            self._occ_window.setdefault(scene_id, []).append(
+                (metrics.pop("surf_w"), metrics.pop("surf_wx"),
+                 metrics.pop("surf_wx2")))
+        if "planes" in grads:
+            self.planes_buffer.apply_grads(scene_id, grads["planes"])
+
+        # module-gated optimizer steps
+        confinements = self.dataset.module_confinements.get(scene_id, [])
+        if self.decoder_opt is not None:
+            self.decoder_opt.accumulate(
+                {k: grads[k] for k in ("dc", "df")
+                 if k in grads and k in self.decoder_opt.params})
+        if self.sr_opt is not None and "sr" in grads:
+            self.sr_opt.accumulate(grads["sr"])
+        new_drawn = self.planes_buffer.step_cadence()
+        if last_vb:
+            if self.decoder_opt is not None:
+                decoder_step = "decoder" not in confinements
+                if "SR" in self.what2train and cfg.get_path(
+                        "nerf.train.separate_decoder_sr", False):
+                    decoder_step &= not sr_iter
+                if decoder_step and self.decoder_training:
+                    self.decoder_opt.step()
+                else:
+                    self.decoder_opt.zero()
+            if (self.sr_opt is not None and sr_iter
+                    and "SR" not in confinements):
+                self.sr_opt.step()
+
+        self._pending_metrics.append(
+            (iteration, consistency_iter, sr_iter,
+             torch.stack([metrics[k] for k in self._METRIC_STACK])))
+        return new_drawn
+
+    _METRIC_STACK = ("loss", "coarse_loss", "fine_loss", "psnr",
+                     "fine_psnr")
+
+    def flush_train_metrics(self):
+        """Fetch the queued training metrics in one device-to-host copy
+        and write them to the logger; returns (losses, psnrs) of the
+        flushed iterations that were not consistency iterations."""
+        if not self._pending_metrics:
+            return [], []
+        vals = torch.stack([m for (_, _, _, m) in self._pending_metrics]
+                           ).cpu().numpy()
+        losses, psnrs = [], []
+        for (it, cons, sr_iter, _), row in zip(self._pending_metrics, vals):
+            loss_val = float(row[0])
+            if cons:
+                self.logger.write_scalar("train/im_inconsistency", loss_val,
+                                         it)
+                continue
+            self.logger.write_scalar("train/loss", loss_val, it)
+            self.logger.write_scalar(
+                "train/loss_%s" % ("sr" if sr_iter else "lr"), loss_val, it)
+            self.logger.write_scalar("train/psnr", float(row[3]), it)
+            self.logger.write_scalar("train/coarse_loss", float(row[1]), it)
+            self.logger.write_scalar("train/fine_loss", float(row[2]), it)
+            self.logger.write_scalar("train/fine_psnr", float(row[4]), it)
+            losses.append(loss_val)
+            psnrs.append(float(row[3]))
+        self._pending_metrics = []
+        return losses, psnrs
+
+    def _update_plane_coverage(self, scene_id, planes, ro, rd, sc_cfg,
+                               rcfg):
+        """models.coarse.plane_stats: accumulate which plane texels an
+        eval view's coarse samples (every 64th ray) touch, and write the
+        histograms as PNGs under <logdir>/coverage."""
+        if self._plane_coverage is None:
+            names = [get_plane_name(s, d)
+                     for s in self.scene_coupler.scene2saved.values()
+                     for d in range(self.model_cfg.num_planes)]
+            self._plane_coverage = PlaneCoverage(sorted(set(names)))
+        ro = ro.reshape(-1, 3)[::64].cpu().numpy()
+        rd = rd.reshape(-1, 3)[::64].cpu().numpy()
+        z = np.linspace(sc_cfg["near"], sc_cfg["far"], rcfg.num_coarse)
+        pts = ro[:, None, :] + rd[:, None, :] * z[None, :, None]
+        xyz = normalize_coords(
+            torch.as_tensor(pts.reshape(-1, 3), dtype=torch.float32),
+            torch.as_tensor(np.asarray(planes.box)[:, :3]))
+        grids = project_to_planes(xyz, self.rot_mats).numpy()
+        saved = self.scene_coupler.scene2saved.get(scene_id, scene_id)
+        for d in range(grids.shape[0]):
+            self._plane_coverage.update(get_plane_name(saved, d), grids[d])
+        self._plane_coverage.save(os.path.join(self.logdir, "coverage"))
 
     # ------------------------------------------------------------------
     # evaluation
@@ -889,10 +1341,124 @@ class Experiment:
     # main loop
     # ------------------------------------------------------------------
     def run(self, max_iters: int = None):
-        """Eval mode: draw the scenes and evaluate every view."""
-        if not self.eval_mode:
-            raise NotImplementedError(
-                "training (Experiment.run outside eval mode) is not ported "
-                "yet: ROADMAP Queue 1 #3")
+        """Eval mode: draw the scenes and evaluate every view. Otherwise
+        train from experiment_info["start_i"] to max_iters (default
+        experiment.train_iters), as the JAX package's loop does."""
+        cfg = self.cfg
         self.planes_buffer.draw_scenes()
-        self.evaluate()
+        if self.eval_mode:
+            self.evaluate()
+            return
+        self.image_sampler.update_active(self.planes_buffer.cur_scenes)
+
+        train_iters = max_iters if max_iters is not None \
+            else cfg.experiment["train_iters"]
+        validate_every = cfg.experiment.get("validate_every", [0.1, 5000])
+        save_every = cfg.experiment.get("save_every", 10.0)
+        print_every = cfg.experiment.get("print_every", 100)
+        no_improvement_iters = cfg.experiment.get("no_improvement_iters",
+                                                  None)
+
+        training_time, evaluation_time = 0.0, 0.0
+        last_evaluated = self.experiment_info["start_i"]
+        recently_saved = time.time()
+        print_loss, print_psnr = [], []
+        # the device runs behind the host: time is accounted per flush
+        # window, which flush_train_metrics ends with its one copy
+        window_t0 = time.time()
+        window_iters = 0
+
+        def flush_window():
+            nonlocal window_t0, window_iters, training_time
+            fl, fp = self.flush_train_metrics()
+            print_loss.extend(fl)
+            print_psnr.extend(fp)
+            elapsed = time.time() - window_t0
+            training_time += elapsed
+            if window_iters:
+                rays = cfg.get_path("nerf.train.num_random_rays", 4096)
+                self.logger.write_scalar(
+                    "train/rays_per_sec",
+                    rays * window_iters / max(elapsed, 1e-9), iteration)
+            window_t0 = time.time()
+            window_iters = 0
+
+        for iteration in range(self.experiment_info["start_i"], train_iters):
+            if isinstance(validate_every, list):
+                evaluate_now = (evaluation_time
+                                <= training_time * validate_every[0]
+                                or iteration - last_evaluated
+                                >= validate_every[1])
+            else:
+                evaluate_now = iteration % validate_every == 0
+            evaluate_now |= iteration == train_iters - 1
+
+            if evaluate_now:
+                flush_window()
+                last_evaluated = iteration
+                t0 = time.time()
+                self.evaluate(iteration)
+                evaluation_time = time.time() - t0
+                self.planes_buffer.draw_scenes()
+                self.image_sampler.update_active(
+                    self.planes_buffer.cur_scenes)
+                training_time = 0.0
+                self.experiment_info["eval_counter"] += 1
+                window_t0 = time.time()
+
+            new_drawn = self.train_iteration(iteration)
+            window_iters += 1
+            if new_drawn is not None:
+                self.image_sampler.update_active(new_drawn)
+
+            if iteration % print_every == 0 or iteration == train_iters - 1:
+                flush_window()
+                print("[TRAIN] Iter: %d Loss: %s PSNR: %s"
+                      % (iteration,
+                         np.mean(print_loss) if print_loss else "n/a",
+                         np.mean(print_psnr) if print_psnr else "n/a"))
+                if self.planes_lr_scheduler is not None and print_loss:
+                    self.planes_buffer.set_lr(
+                        self.planes_lr_scheduler.step(
+                            float(np.mean(print_loss))))
+                print_loss, print_psnr = [], []
+
+            save_now = (self.scenes_cycle_counter.check_and_reset()
+                        if self.decoder_training else False)
+            if isinstance(save_every, int):
+                save_now |= iteration % save_every == 0
+            else:
+                save_now |= (time.time() - recently_saved) / 60 > save_every
+            save_now |= iteration == train_iters - 1
+
+            if save_now:
+                save_as_best, quit_training = False, False
+                grp0 = self.loss_groups4_best[0] \
+                    if self.loss_groups4_best else None
+                if grp0 and self.running.full(self.loss4best, grp0):
+                    recent = float(np.mean(
+                        [v for g in self.loss_groups4_best
+                         for v in self.running.scores[self.loss4best][g]]))
+                    if recent < self.experiment_info["best_loss"][1]:
+                        self.experiment_info["best_loss"] = (iteration,
+                                                             recent)
+                        save_as_best = True
+                    elif no_improvement_iters is not None:
+                        if (iteration - self.experiment_info["best_loss"][0]
+                                >= len(self.training_scenes)
+                                * no_improvement_iters):
+                            quit_training = True
+                recently_saved = time.time()
+                if self.planes_buffer.optimize:
+                    self.planes_buffer.save_params()
+                    if save_as_best:
+                        self.planes_buffer.save_params(as_best=True)
+                self.experiment_info["start_i"] = iteration + 1
+                self.save_checkpoints(iteration, as_best=save_as_best)
+                if quit_training:
+                    print("Done training: no improvement for %d iters"
+                          % (iteration
+                             - self.experiment_info["best_loss"][0]))
+                    break
+        self.flush_train_metrics()
+        print("Done!")

@@ -372,6 +372,28 @@ def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
                               member=member, sigma_only=sigma_only)
 
 
+def make_density_fn(params, cfg: TriplaneConfig, planes_pos, box, *,
+                    member: int = 0, rot_mats=None):
+    """Density-only evaluator [N, 3] world xyz -> [N] sigma logits: the
+    density branch alone (no view plane, no rgb head), through the plain
+    plane gather; occupancy estimation uses it
+    (ops/occupancy.estimate_occupied_box)."""
+    m = params["members"][member]
+    box = torch.as_tensor(box, dtype=torch.float32, device=planes_pos.device)
+    rot = rot_mats if rot_mats is not None \
+        else rot_mats_on(cfg.num_planes, planes_pos.device)
+
+    def density_fn(xyz_raw):
+        xyz = normalize_coords(xyz_raw, box[:, :3])
+        grids = project_to_planes(xyz, rot)
+        projected = combine_pos_planes(sample_planes(planes_pos, grids, cfg),
+                                       cfg.proj_combination)
+        _, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected, cfg)
+        return alpha[..., 0]
+
+    return density_fn
+
+
 # JAX's chunk cap (NVSR_CHUNK_CAP, triplane.py:590-599): the fused kernel
 # takes a pass only when tile_rays * slab <= 512 after the slab is halved
 # as far as 1, i.e. when tile_rays <= 512

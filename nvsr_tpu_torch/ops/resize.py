@@ -116,6 +116,13 @@ def downsample_plane(plane, ds_factor: int, mode: str = "bilinear",
                     align_corners=align_corners, antialias=antialias)
 
 
+def avg_downsample_pixels(pixels, ds_factor: int):
+    """Average ds x ds pixel patches: [N*ds*ds, 3] patch-major (as the
+    patch-aligned ray selection lays them out) -> [N, 3]."""
+    return torch.mean(pixels.reshape(-1, ds_factor, ds_factor, 3),
+                      dim=(1, 2))
+
+
 def image_inconsistency_loss(sr_image, ds_factor: int, gt_lr=None,
                              gt_hr=None, mode: str = "bilinear",
                              align_corners: bool = True):

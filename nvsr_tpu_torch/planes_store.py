@@ -9,15 +9,16 @@ and the planes' Adam (counterpart of nvsr_tpu/planes_store.py).
     semantics and the search-path hierarchy, and the planes' Adam state
     as keys `opt_{i}` in the order JAX flattens its optax state
     (`PlanesAdamState`);
-  * `PlanesBuffer` -- its eval half: the scene draw, the per-scene load
-    that puts a scene's planes on the port's device once, and the
-    occupied-box update. Buffer redraws while training, the planes' Adam
-    steps through the buffer, saving and corpus statistics belong to the
-    training half (ROADMAP Queue 1 #3); `PlanesOptimizer` below is the
-    per-scene Adam that the training step uses today.
+  * `PlanesBuffer` -- the resident working set: draws `buffer_size`
+    scenes every `steps_per_buffer` steps, puts each drawn scene's planes
+    and its Adam state on the port's device once, steps them
+    (`apply_grads`), and writes changed scenes back, Adam state included,
+    on a redraw, a save or an eval load;
+  * `PlanesOptimizer` -- one Adam per trained scene, the step inside the
+    buffer.
 
 optax.adam(lr, eps=1e-8) and torch.optim.Adam(lr, eps=1e-8) take the
-same step.
+same step (in another order of f32 operations).
 """
 
 from __future__ import annotations
@@ -253,15 +254,20 @@ class PlaneStore:
 
 
 class PlanesBuffer:
-    """The resident scene working set, eval half: draw the scenes, load
-    one scene on demand, record its occupied box. Each scene's planes
-    are put on `device` once, when they are loaded. With optimize, the
-    scenes load from their rolling files rather than their best ones;
-    stepping them belongs to the training half."""
+    """The resident scene working set and the per-scene Adam of the
+    planes.
+
+    buffer_size scenes are resident; every steps_per_buffer steps the
+    buffer is flushed and redrawn (steps_per_buffer == -1: the buffer
+    holds every scene and is only reshuffled); the sampler's reshuffle
+    callback marks scene cycles; frozen scenes never step or save;
+    `save_params(as_best=True)` snapshots every training scene. Each
+    resident scene's planes, and with optimize its Adam moments, live on
+    `device`; they are loaded once per draw and updated in place."""
 
     def __init__(self, store: PlaneStore, training_scenes, *, lr: float,
                  buffer_size: Optional[int] = None,
-                 steps_per_buffer: int = -1, optimize: bool = False,
+                 steps_per_buffer: int = -1, optimize: bool = True,
                  frozen_scenes=(), scene2saved: Optional[dict] = None,
                  do_when_reshuffling: Callable = None,
                  rng: np.random.Generator = None, device="cuda"):
@@ -271,7 +277,8 @@ class PlanesBuffer:
         self.scene2saved = scene2saved or {s: s for s in self.training_scenes}
         self.frozen_scenes = set(frozen_scenes)
         self.optimize = optimize
-        self.lr = lr
+        # the step's lr is the buffer's, read at each step (set_lr)
+        self.opt = PlanesOptimizer({}, lr)
         self.buffer_size = buffer_size or len(self.training_scenes)
         self.steps_per_buffer = steps_per_buffer
         if self.buffer_size >= len(self.training_scenes):
@@ -288,22 +295,38 @@ class PlanesBuffer:
         self.dirty: set[str] = set()
         self.steps_since_drawing = 0
         self.cur_scenes: list[str] = []
+        self._prefetch = None
 
+    @property
+    def lr(self) -> float:
+        return self.opt.lr
+
+    # -- buffer management --------------------------------------------------
     def _flush(self):
         for scene in sorted(self.dirty):
-            self.store.save(scene, self.resident[scene])
+            self.store.save(scene, self.resident[scene],
+                            self.opt.state(scene))
         self.dirty.clear()
 
-    def _load(self, saved: str, prefer_best: bool):
-        planes, _ = self.store.load(saved, prefer_best=prefer_best)
-        self.resident[saved] = replace(
+    def _load(self, saved: str, prefer_best: bool, trained: bool):
+        """Put a stored scene on the device; with `trained`, its Adam
+        state too (the stored one, else a fresh one)."""
+        planes, opt_state = self.store.load(saved, prefer_best=prefer_best,
+                                            with_opt_state=trained)
+        planes = replace(
             planes, planes_pos=planes.planes_pos.to(self.device),
             plane_view=None if planes.plane_view is None
             else planes.plane_view.to(self.device))
+        self.resident[saved] = planes
+        if trained:
+            self.opt.add_scene(saved, planes.params(), opt_state)
 
     def draw_scenes(self):
         """Flush the changed scenes and load a fresh buffer."""
         self._flush()
+        if self._prefetch is not None:
+            self._prefetch.join()
+            self._prefetch = None
         self.steps_since_drawing = 0
         self.cur_scenes = self.sampler.sample(
             self.buffer_size, just_shuffle=self.steps_per_buffer == -1)
@@ -311,12 +334,28 @@ class PlanesBuffer:
         for scene in list(self.resident):
             if scene not in keep:
                 del self.resident[scene]
+                self.opt.drop_scene(scene)
         for scene in self.cur_scenes:
             saved = self.scene2saved[scene]
             if saved not in self.resident:
-                self._load(saved, prefer_best=scene in self.frozen_scenes
-                           or not self.optimize)
+                frozen = scene in self.frozen_scenes
+                self._load(saved, prefer_best=frozen or not self.optimize,
+                           trained=self.optimize and not frozen)
+        self._start_prefetch()
         return self.cur_scenes
+
+    def _start_prefetch(self):
+        """Warm the page cache for the next buffer's plane files on the
+        native store's background threads while training runs (only
+        where the buffer is redrawn, and the native store is built)."""
+        if self.steps_per_buffer == -1 or not native_store.available():
+            return
+        paths = [self.store.path(self.scene2saved.get(sc, sc),
+                                 must_exist=True)
+                 for sc in self.sampler.sample_from[:self.buffer_size]]
+        paths = [p for p in paths if p]
+        if paths:
+            self._prefetch = native_store.Prefetcher(paths, n_threads=2)
 
     def get(self, scene: str) -> ScenePlanes:
         return self.resident[self.scene2saved[scene]]
@@ -326,8 +365,20 @@ class PlanesBuffer:
         self._flush()
         saved = self.scene2saved[scene]
         if saved not in self.resident:
-            self._load(saved, prefer_best=load_best)
+            self._load(saved, prefer_best=load_best,
+                       trained=self.optimize
+                       and scene not in self.frozen_scenes)
         return self.resident[saved]
+
+    # -- optimization -------------------------------------------------------
+    def apply_grads(self, scene: str, grads: dict):
+        """One Adam step on this scene's planes (a no-op for a frozen
+        scene or without optimize)."""
+        if not self.optimize or scene in self.frozen_scenes:
+            return
+        saved = self.scene2saved[scene]
+        self.opt.apply_grads(saved, grads)
+        self.dirty.add(saved)
 
     def set_occ_aabb(self, scene: str, aabb):
         """Record a scene's occupied box; it is saved with the planes and
@@ -337,26 +388,174 @@ class PlanesBuffer:
                                        occ_aabb=np.asarray(aabb))
         self.dirty.add(saved)
 
+    def set_lr(self, lr: float):
+        """Adjust the planes learning rate (plateau scheduler hook)."""
+        self.opt.set_lr(lr)
+
+    def step_cadence(self):
+        """Advance the buffer clock; redraw when due. Returns the new
+        scene list, or None."""
+        self.steps_since_drawing += 1
+        if self.steps_since_drawing == self.steps_per_buffer:
+            return self.draw_scenes()
+        return None
+
+    def jump_start(self, config=None, on: bool = True):
+        """Curriculum warm-up: on=True pins training to the first
+        `config[0]` scenes (a fraction or a count) with the redraw
+        suspended until the caller's criterion is met; on=False restores
+        the redraw cadence and redraws. Returns the number of scenes (on)
+        or the new scene list (off)."""
+        if on:
+            num_scenes = config[0]
+            if isinstance(num_scenes, float):
+                num_scenes = int(np.ceil(num_scenes
+                                         * len(self.sampler.scenes)))
+            self._jump_start_memory = {
+                "steps_per_buffer": self.steps_per_buffer}
+            self.sampler.sample_from = []
+            self.steps_per_buffer = -1
+            return num_scenes
+        self.steps_per_buffer = \
+            self._jump_start_memory["steps_per_buffer"]
+        self.sampler.sample_from = []
+        self.draw_scenes()
+        return self.cur_scenes
+
+    def save_params(self, as_best: bool = False):
+        """Write the planes (and their Adam state) back to disk; as_best
+        snapshots every training scene."""
+        scenes = self.training_scenes if as_best else self.cur_scenes
+        saved_set = []
+        for sc in scenes:
+            if sc in self.frozen_scenes:
+                continue
+            saved = self.scene2saved[sc]
+            if saved in saved_set:
+                continue
+            saved_set.append(saved)
+            if saved in self.resident:
+                self.store.save(saved, self.resident[saved],
+                                self.opt.state(saved), as_best=as_best)
+            elif as_best and self.store.exists(saved):
+                planes, opt_state = self.store.load(
+                    saved, with_opt_state=self.optimize)
+                self.store.save(saved, planes, opt_state, as_best=True)
+        if not as_best:
+            self.dirty.clear()
+
+    # -- statistics ---------------------------------------------------------
+    def get_plane_stats(self, viewdir: bool = False) -> dict:
+        """Per-channel mean and std over the corpus planes (numpy, in
+        the JAX package's order of reductions), for SR input
+        normalization."""
+        means, stds = [], []
+        for sc in self.training_scenes:
+            saved = self.scene2saved[sc]
+            if saved in self.resident:
+                planes = self.resident[saved]
+            else:
+                best = self.store.exists(saved, prefer_best=True)
+                planes, _ = self.store.load(saved, prefer_best=best)
+            pos = _numpy(planes.planes_pos)
+            means.extend(pos.mean(axis=(2, 3)))
+            stds.extend(pos.reshape(*pos.shape[:2], -1).std(axis=2))
+            if viewdir and planes.plane_view is not None:
+                pv = _numpy(planes.plane_view)
+                means.append(pv.mean(axis=(1, 2)))
+                stds.append(pv.reshape(pv.shape[0], -1).std(axis=1))
+        return {"mean": np.stack(means).mean(0),
+                "std": np.stack(stds).mean(0)}
+
+
+_ADAM_HYPERPARAMS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
 
 class PlanesOptimizer:
     """One Adam per trained scene over its plane dict {"pos", "view"?}.
 
     `planes` maps scene -> plane dict of leaf tensors, which are updated
-    in place; frozen scenes (or optimize=False) never step."""
+    in place; frozen scenes (or optimize=False) never step. Each scene's
+    state converts to and from the JAX package's stored form
+    (`PlanesAdamState`): the Adam moments stay on the planes' device, the
+    step count on the host, and the optax wrapper's step count and
+    hyperparameters are carried beside them (the learning rate being the
+    one of the scene's last step, as optax.inject_hyperparams keeps it)."""
 
     def __init__(self, planes: dict, lr: float, *, optimize: bool = True,
                  frozen_scenes=()):
         self.planes = planes
         self.lr = float(lr)
+        self.init_lr = float(lr)
         self.optimize = optimize
         self.frozen_scenes = set(frozen_scenes)
         self.opts: dict = {}
+        self._wrapper: dict = {}
 
     def _opt(self, scene: str) -> torch.optim.Adam:
         if scene not in self.opts:
             self.opts[scene] = torch.optim.Adam(
                 list(self.planes[scene].values()), lr=self.lr, eps=1e-8)
         return self.opts[scene]
+
+    def _wrap(self, scene: str) -> dict:
+        if scene not in self._wrapper:
+            hyper = dict(_ADAM_HYPERPARAMS, learning_rate=self.init_lr)
+            self._wrapper[scene] = {
+                "inject_count": np.asarray(0, np.int32),
+                "count_shape": (),
+                "hyperparams": {k: np.asarray(v, np.float32)
+                                for k, v in hyper.items()}}
+        return self._wrapper[scene]
+
+    def add_scene(self, scene: str, planes: dict,
+                  state: Optional[PlanesAdamState] = None):
+        """Track `scene`'s plane tensors, with its stored Adam state (the
+        moments copied to the planes' device) or a fresh one."""
+        self.drop_scene(scene)
+        self.planes[scene] = planes
+        if state is None:
+            return
+        opt = self._opt(scene)
+        step = torch.tensor(float(np.asarray(state.count).reshape(-1)[0]),
+                            dtype=torch.float32)
+        for k, p in planes.items():
+            opt.state[p] = {
+                "step": step.clone(),
+                "exp_avg": torch.tensor(np.asarray(state.mu[k]),
+                                        device=p.device),
+                "exp_avg_sq": torch.tensor(np.asarray(state.nu[k]),
+                                           device=p.device)}
+        # the scalars as stored (the native store keeps a 0-d array as
+        # shape (1,)), so a state saved again without a step is the same
+        self._wrapper[scene] = {
+            "inject_count": np.asarray(state.inject_count),
+            "count_shape": np.shape(state.count),
+            "hyperparams": dict(state.hyperparams)}
+
+    def drop_scene(self, scene: str):
+        for d in (self.planes, self.opts, self._wrapper):
+            d.pop(scene, None)
+
+    def state(self, scene: str) -> Optional[PlanesAdamState]:
+        """The scene's Adam state in the stored form (moments as tensors
+        on the device), or None for a scene this optimizer does not
+        train."""
+        if scene not in self.planes:
+            return None
+        params = self.planes[scene]
+        opt_state = self.opts[scene].state if scene in self.opts else {}
+        st = {k: opt_state.get(p) for k, p in params.items()}
+        first = next(iter(st.values()))
+        count = int(first["step"]) if first else 0
+        wrap = self._wrap(scene)
+        return PlanesAdamState(
+            wrap["inject_count"], dict(wrap["hyperparams"]),
+            np.full(wrap["count_shape"], count, np.int32),
+            {k: v["exp_avg"] if v else torch.zeros_like(params[k])
+             for k, v in st.items()},
+            {k: v["exp_avg_sq"] if v else torch.zeros_like(params[k])
+             for k, v in st.items()})
 
     @torch.no_grad()
     def apply_grads(self, scene: str, grads: dict):
@@ -372,6 +571,10 @@ class PlanesOptimizer:
         opt.step()
         for p in self.planes[scene].values():
             p.grad = None
+        wrap = self._wrap(scene)
+        wrap["inject_count"] = wrap["inject_count"] + 1
+        wrap["hyperparams"]["learning_rate"] = np.asarray(self.lr,
+                                                          np.float32)
 
     def set_lr(self, lr: float):
         """Adjust the planes learning rate (plateau scheduler hook); it

@@ -6,10 +6,12 @@ every group the flags make trainable (coarse decoder, fine decoder, SR
 net, the scene's planes) with one `torch.autograd.grad`; frozen groups
 enter as detached tensors, so the backward never reaches them. Which
 groups then step is the caller's choice, through `ModuleOptimizer`
-(decoders, SR) and `planes_store.PlanesOptimizer` (planes).
+(decoders, SR) and `planes_store.PlanesBuffer.apply_grads` (planes).
+`ModuleOptimizer.state` reads and writes optax.adam's state layout, so
+the JAX package's checkpoints carry over both ways.
 
-Not ported yet: consistency (image-inconsistency patch) iterations and
-`train_step_baseline` (ROADMAP).
+Not ported yet: `train_step_baseline`, the baseline NeRF's step (ROADMAP
+Queue 1 #5).
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr
+from nvsr_tpu_torch.ops.resize import avg_downsample_pixels
 from nvsr_tpu_torch.planes_store import materialize_pos_planes
 from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
                                    make_triplane_point_fn, render_rays)
+from nvsr_tpu_torch.utils.io import EmptyState, ScaleByAdamState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +90,24 @@ def _unflatten(tree, leaves):
     return _tree_map(lambda _: next(it), tree)
 
 
+def _leaves_like(tree, other) -> list:
+    """The leaves of `other` in the leaf order of `tree`, matched by dict
+    key and list index (a tree from a pickle may order its keys in
+    another way); KeyError or IndexError where the structures differ."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves_like(v, other[k])]
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(other):
+            raise IndexError(f"{len(other)} entries, not {len(tree)}")
+        return [x for v, o in zip(tree, other) for x in _leaves_like(v, o)]
+    return [other]
+
+
+def _loss_weight(flags: "StepFlags") -> float:
+    return (flags.im_inconsistency_loss_w if flags.consistency_iter
+            else flags.rendering_loss_w)
+
+
 def _inputs(tree, trainable: bool):
     """The group as autograd sees it: detached views of the caller's
     tensors, leaves that require grad when the group is trained."""
@@ -111,9 +133,6 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     the trainable route); grads has the JAX layout {"planes", "dc",
     "df", "sr"} for the trained groups, each the structure of its input.
     """
-    if flags.consistency_iter:
-        raise NotImplementedError(
-            "consistency iterations are not ported yet")
     if flags.track_surface_aabb and not rcfg.keep_z:
         rcfg = dataclasses.replace(rcfg, keep_z=True)
     diff = {}
@@ -161,14 +180,20 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
         noise_generator=noise_gen, plane_resolution=flags.plane_resolution)
     out = render_rays(pf_coarse, pf_fine, rays, rcfg, generator)
 
+    rgb_coarse = out.coarse.rgb
+    rgb_fine = out.fine.rgb if out.fine is not None else None
+    if flags.consistency_iter:
+        rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
+        if rgb_fine is not None:
+            rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
     zero = torch.zeros((), device=target.device)
     coarse_loss = fine_loss = zero
     if flags.compute_coarse_loss:
-        coarse_loss = img2mse(out.coarse.rgb, target[..., :3])
-    if flags.compute_fine_loss and out.fine is not None:
-        fine_loss = img2mse(out.fine.rgb, target[..., :3])
+        coarse_loss = img2mse(rgb_coarse, target[..., :3])
+    if flags.compute_fine_loss and rgb_fine is not None:
+        fine_loss = img2mse(rgb_fine, target[..., :3])
     rendering_loss = coarse_loss + fine_loss
-    total = flags.rendering_loss_w * rendering_loss
+    total = _loss_weight(flags) * rendering_loss
 
     leaves = _leaves(diff)
     grads = {}
@@ -258,16 +283,57 @@ class PlateauScheduler:
 class ModuleOptimizer:
     """One Adam (eps 1e-8) over a parameter pytree, with virtual batches:
     `accumulate` sums gradient trees, `step` applies the sum once and
-    clears it. The pytree's tensors are updated in place."""
+    clears it. The pytree's tensors are updated in place.
+
+    `state` is the Adam state in optax.adam's layout,
+    (ScaleByAdamState(count, mu, nu), EmptyState()) with mu and nu in the
+    params' structure, as the JAX package's checkpoints pickle it;
+    assigning one (numpy or tensor leaves, keys in any order) makes the
+    next step continue from it."""
 
     def __init__(self, params, lr: float):
         self.params = params
+        self.lr = lr
         self._leaves = _leaves(params)
         self.opt = torch.optim.Adam(self._leaves, lr=lr, eps=1e-8)
         self._accum = None
 
+    @property
+    def state(self):
+        states = [self.opt.state.get(p) for p in self._leaves]
+        count = int(states[0]["step"]) if states[0] else 0
+
+        def moment(key):
+            return _unflatten(self.params, [
+                s[key] if s else torch.zeros_like(p)
+                for p, s in zip(self._leaves, states)])
+
+        return (ScaleByAdamState(np.asarray(count, np.int32),
+                                 moment("exp_avg"), moment("exp_avg_sq")),
+                EmptyState())
+
+    @state.setter
+    def state(self, value):
+        adam = value[0]
+        step = torch.tensor(float(np.asarray(adam.count).reshape(-1)[0]),
+                            dtype=torch.float32)
+        pairs = zip(self._leaves, _leaves_like(self.params, adam.mu),
+                    _leaves_like(self.params, adam.nu))
+        new = {}
+        for p, mu, nu in pairs:
+            mu, nu = (x.to(p.device, p.dtype).clone() if torch.is_tensor(x)
+                      else torch.tensor(np.asarray(x), dtype=p.dtype,
+                                        device=p.device)
+                      for x in (mu, nu))
+            if mu.shape != p.shape or nu.shape != p.shape:
+                raise ValueError(f"Adam moments {tuple(mu.shape)} for a "
+                                 f"parameter {tuple(p.shape)}")
+            new[p] = {"step": step.clone(), "exp_avg": mu, "exp_avg_sq": nu}
+        self.opt.state.clear()
+        self.opt.state.update(new)
+
     def accumulate(self, grads):
-        g = _leaves(grads)
+        g = _leaves_like(self.params, grads)
         if self._accum is None:
             self._accum = [x.clone() for x in g]
         else:
@@ -333,3 +399,33 @@ def select_random_rays(rng: np.random.Generator, image, ray_origins,
     render.build_sampled_rays, which never builds the full maps."""
     rows, cols, target = choose_random_pixels(rng, image, num_rays)
     return ray_origins[rows, cols], ray_directions[rows, cols], target
+
+
+def choose_patch_pixels(rng: np.random.Generator, lr_image, num_rays: int,
+                        ds_factor: int):
+    """Patch-aligned pixel blocks for consistency iterations: draw LR
+    pixels, return the HR pixel indices of their ds x ds patches
+    (patch-major) -> (hr_rows [N*ds^2], hr_cols [N*ds^2], target [N, C])."""
+    lh, lw = lr_image.shape[:2]
+    n = min(lh * lw, num_rays // (ds_factor ** 2))
+    idx = rng.choice(lh * lw, size=n, replace=False)
+    rows, cols = idx // lw, idx % lw
+    target = lr_image[rows, cols]
+    hr_rows = (rows[:, None, None] * ds_factor
+               + np.arange(ds_factor)[None, :, None])
+    hr_cols = (cols[:, None, None] * ds_factor
+               + np.arange(ds_factor)[None, None, :])
+    hr_rows = np.broadcast_to(hr_rows, (n, ds_factor, ds_factor)).reshape(-1)
+    hr_cols = np.broadcast_to(hr_cols, (n, ds_factor, ds_factor)).reshape(-1)
+    return hr_rows, hr_cols, target
+
+
+def select_patch_rays(rng: np.random.Generator, lr_image, ray_origins,
+                      ray_directions, num_rays: int, ds_factor: int):
+    """Patch-aligned ray blocks from full HR ray maps [H, W, 3] (numpy or
+    tensors): (ro [N*ds^2, 3], rd [N*ds^2, 3], target [N, C]). Prefer
+    choose_patch_pixels + render.build_sampled_rays."""
+    hr_rows, hr_cols, target = choose_patch_pixels(rng, lr_image, num_rays,
+                                                   ds_factor)
+    return (ray_origins[hr_rows, hr_cols], ray_directions[hr_rows, hr_cols],
+            target)

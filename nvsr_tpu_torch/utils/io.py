@@ -9,13 +9,15 @@ Also the `time_sig.txt` preemption protocol
 (reference train_nerf.py:563, nerf_helpers.py:22-30): a newer run
 writing to the same logdir makes the older run exit at its next save.
 
-The port's copy of nvsr_tpu/utils/io.py. One change: `load_pickle`
-reads through a restricted unpickler. The JAX package's checkpoints
-pickle its optimizers' optax state (NamedTuples such as
-`ScaleByAdamState`), and a plain `pickle.load` would import optax, and
-with it JAX. Here those classes resolve to plain stand-ins with the same
+The port's copy of nvsr_tpu/utils/io.py. Two changes, both for the
+optimizers' optax state (NamedTuples such as `ScaleByAdamState`) that the
+JAX package's checkpoints pickle. `load_pickle` reads through a
+restricted unpickler: a plain `pickle.load` would import optax, and with
+it JAX; here those classes resolve to plain stand-ins with the same
 fields, and any other global from `jax`, `jaxlib`, `optax` or `nvsr_tpu`
-is refused.
+is refused. `save_pickle` writes the stand-ins back under optax's own
+names, so the JAX package's plain `pickle.load` reads a port-written
+checkpoint as one of its own, and the port never imports optax.
 """
 
 from __future__ import annotations
@@ -123,18 +125,6 @@ def load_npz(file_name: str, suffix: str = "npz", best: bool = False) -> dict:
     return safe_load(file_name, read, suffix, best=best)
 
 
-def save_pickle(file_name: str, content, suffix: str = "pkl",
-                best: bool = False, run_time_signature: float = 0,
-                run_folder: str = None) -> str:
-    def write(path):
-        with open(path, "wb") as f:
-            pickle.dump(content, f)
-
-    return safe_save(file_name, write, suffix, best=best,
-                     run_time_signature=run_time_signature,
-                     run_folder=run_folder)
-
-
 class ScaleByAdamState(NamedTuple):
     """Stand-in for optax's Adam state (count, first and second moments)."""
     count: Any
@@ -146,12 +136,44 @@ class EmptyState(NamedTuple):
     """Stand-in for optax's stateless-transform state."""
 
 
-# the optax classes in the JAX package's checkpoints: the decoders' and
-# the SR net's optax.adam states (the planes' Adam state is stored as
-# arrays in the plane files)
-_OPTAX_STAND_INS = {cls.__name__: cls for cls in (ScaleByAdamState,
-                                                  EmptyState)}
+# the optax classes in the JAX package's checkpoints, by the module that
+# defines them in optax (as pickletools.dis shows a JAX checkpoint): the
+# decoders' and the SR net's optax.adam states (the planes' Adam state is
+# stored as arrays in the plane files)
+_OPTAX_PATHS = {ScaleByAdamState: ("optax._src.transform",
+                                   "ScaleByAdamState"),
+                EmptyState: ("optax._src.base", "EmptyState")}
+_OPTAX_STAND_INS = {name: cls for cls, (_, name) in _OPTAX_PATHS.items()}
 _REFUSED = ("jax", "jaxlib", "optax", "nvsr_tpu")
+
+
+class PortPickler(pickle._Pickler):
+    """Writes the optax stand-ins as optax's own globals. The C pickler
+    checks a global by importing its module, which would need optax; the
+    Python pickler's save_global can be overridden to emit the reference
+    as pickle protocol 4 writes any global (module name, qualified name,
+    STACK_GLOBAL)."""
+
+    def save_global(self, obj, name=None):
+        where = _OPTAX_PATHS.get(obj)
+        if where is None:
+            return super().save_global(obj, name)
+        self.save(where[0])
+        self.save(where[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def save_pickle(file_name: str, content, suffix: str = "pkl",
+                best: bool = False, run_time_signature: float = 0,
+                run_folder: str = None) -> str:
+    def write(path):
+        with open(path, "wb") as f:
+            PortPickler(f, protocol=4).dump(content)
+
+    return safe_save(file_name, write, suffix, best=best,
+                     run_time_signature=run_time_signature,
+                     run_folder=run_folder)
 
 
 class PortUnpickler(pickle.Unpickler):

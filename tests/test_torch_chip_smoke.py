@@ -85,3 +85,18 @@ def test_experiment_phase_rehearses_on_the_cpu():
     small = dict(image=32, channels=8, res=6, view_res=4, sr_hidden=4,
                  sr_blocks=1, sr_scale=2, reps=1)
     assert cs.experiment_phase("cpu", w=small, on_card=False) is None
+
+
+def test_experiment_train_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's Experiment training phase on the CPU at a tiny
+    size, every step and render through the plain versions: the training
+    run and its logdir (rolling and best checkpoints, SR checkpoints,
+    exp_info, plane files with their Adam leaves), finite losses, a
+    committed occupied box inside the scene box, an eval view against the
+    reference path (>= 45 dB), and the resume, which starts at the saved
+    start_i with every parameter and Adam state bit-equal and trains
+    on."""
+    cs = _chip_smoke()
+    small = dict(rays=64, samples=4, channels=8, res=12, view_res=4,
+                 sr_hidden=4, sr_blocks=1, sr_scale=2, image=32)
+    assert cs.experiment_train_phase("cpu", w=small, on_card=False) is None
