@@ -95,7 +95,33 @@ Phases (any failure raises and the script exits non-zero):
      the reference path (>= 45 dB); the resume at the saved start_i with
      every parameter and Adam state bit-equal to the first run's. Prints
      the LR and HR/SR iteration ms, save_checkpoints, evaluate and the
-     resume's load ms, and the phase's seconds.
+     resume's load ms, and the phase's seconds;
+ 10. what the port does beside the triplane path: (a) the baseline stage
+     of configs/MipNeRF_baseline.yml (as a dict: 8 layers x 256, skip
+     every 4, IPE of num_encoding_fn_xyz 16, dir PE 4, mip, 64+64
+     samples, 1024 rays, density noise 0.2, consistency iterations, Adam
+     5e-4) on phase 8's scene under the YAML's groups (8, trains at
+     100^2, 2, validates at 400^2): 6 iterations then a resume to 10,
+     an eval at each run's first and last iteration, a save every 2;
+     checks finite losses, the logdir in the JAX layout, a bit-equal
+     resume, a 48x48 crop of the val view rendered on the card against
+     the port's own CPU render of the same rays and weights (>= 45 dB),
+     and `--eval images` of the logdir (metrics.txt and PNGs, from the
+     best checkpoint); prints the iteration, save, evaluate, resume-load
+     and eval-per-view ms (--profile: one eval view's device time and
+     idle share); (b) reference-layout torch checkpoints at TrainModels
+     width (two 4+4x128 decoders with rot_mats_NON_LEARNED, EDSR 256x32
+     x4 with the inner_model. prefix, a .par of 3x48x200^2 + 48x32^2
+     planes with Adam moments) from a seeded generator, torch.save'd,
+     read back by convert.load_torch_checkpoint and converted onto the
+     card; then, with launch counts zeroed, SR and phase 3's 800x800
+     frame through the fused kernel on the converted weights (>= 45 dB
+     from the plain version; 79 launches of each frame entry); (c)
+     SRResNet (64 wide, 16 blocks, x4, with and without BatchNorm, eval
+     and train mode) on 3x48x200^2 planes, finite and of the right
+     shape, and EDSR 256x32 x4 with tile_size 100 against the full plane
+     in f32 (TF32 off; within 1e-3 of the trunk output's largest) and
+     bf16 (>= 45 dB), each timed.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
@@ -2237,16 +2263,6 @@ def experiment_train_phase(dev, w=TRAIN_FULL, on_card=True, profile=False,
                 out[sc + "_adam"] = e.planes_buffer.opt.state(sc)
             return out
 
-        def flat(tree):
-            if isinstance(tree, dict):
-                return [x for k in sorted(tree) for x in flat(tree[k])]
-            if isinstance(tree, (list, tuple)):
-                return [x for v in tree for x in flat(v)]
-            # the native plane store keeps a 0-d array as shape (1,)
-            return [(torch.as_tensor(np.asarray(tree)) if not
-                     torch.is_tensor(tree) else tree.detach().cpu()
-                     ).reshape(-1)]
-
         before = state_of(exp)
         cfg.experiment["train_iters"] = resume_iters
         sync()
@@ -2257,9 +2273,7 @@ def experiment_train_phase(dev, w=TRAIN_FULL, on_card=True, profile=False,
         sync()
         resume_ms = (time.perf_counter() - t0) * 1e3
         after = state_of(exp2)
-        same = {k: len(flat(before[k])) == len(flat(after.get(k, {})))
-                and all(torch.equal(a, b) for a, b in zip(
-                    flat(before[k]), flat(after[k]))) for k in before}
+        same = {k: trees_equal(before[k], after.get(k, {})) for k in before}
         print(f"[train-exp] resume: start_i "
               f"{exp2.experiment_info['start_i']} (saved {first_iters}); "
               f"loaded equal to the first run's {same}")
@@ -2300,6 +2314,609 @@ def experiment_train_phase(dev, w=TRAIN_FULL, on_card=True, profile=False,
                       f"Experiment iteration {n}, of the bare {label} "
                       f"train_step (phase 5) "
                       f"{(host_waits or {}).get(label, 'not profiled')}")
+
+
+# configs/MipNeRF_baseline.yml's widths: 8 layers x 256, IPE of
+# num_encoding_fn_xyz 16, dir PE 4, mip, 64+64 samples, 1024 rays a
+# batch; on phase 8's 800^2 synthetic scene; `crop`^2 rays of the val
+# view are rendered on the card and on the CPU
+BASELINE_FULL = dict(image=800, layers=8, hidden=256, rays=1024, samples=64,
+                     crop=48)
+
+
+def baseline_cfg(w, scene):
+    """configs/MipNeRF_baseline.yml written out as a dict (so no YAML
+    reader is needed), its dataset cut to one synthetic scene under the
+    YAML's groups (8, for training, 2, for validation); the widths from
+    `w`."""
+    from nvsr_tpu_torch.utils.config import CfgNode
+    return CfgNode({
+        "experiment": {"id": "lr_nerf_mip_baseline", "logdir": "logs",
+                       "randomseed": 0, "train_iters": 1500000,
+                       "validate_every": [0.01, 5000], "save_every": 10.0,
+                       "print_every": 100},
+        "dataset": {
+            "synt": {"root": "synt", "near": 2, "far": 6, "no_ndc": True},
+            "llff": {"root": "llff", "near": 0, "far": 1, "no_ndc": False},
+            "max_scenes_eval": 9,
+            "dir": {"train": {"8,": [scene]}, "val": {"2,": [scene]}},
+            "testskip": 10, "llffhold": 2},
+        "models": {
+            "coarse": {"type": "FlexibleNeRFModel",
+                       "num_layers": w["layers"], "hidden_size": w["hidden"],
+                       "skip_connect_every": 4, "num_encoding_fn_xyz": 16,
+                       "num_encoding_fn_dir": 4, "include_input_xyz": True,
+                       "include_input_dir": True, "use_viewdirs": True},
+            "fine": {"type": "FlexibleNeRFModel"}},
+        "optimizer": {"type": "Adam", "lr": 5e-4},
+        "nerf": {
+            "use_viewdirs": True, "encode_position_fn": "mip",
+            "encode_direction_fn": "positional_encoding",
+            "train": {"num_random_rays": w["rays"], "chunksize": 131072,
+                      "perturb": True, "num_coarse": w["samples"],
+                      "num_fine": w["samples"], "white_background": False,
+                      "im_inconsistency_loss_w": 1,
+                      "im_consistency_iters_freq": 0.25,
+                      "radiance_field_noise_std": 0.2, "lindisp": False},
+            "validation": {"chunksize": 131072, "perturb": False,
+                           "num_coarse": w["samples"],
+                           "num_fine": w["samples"],
+                           "white_background": False,
+                           "radiance_field_noise_std": 0.0,
+                           "lindisp": False}}})
+
+
+def flat_leaves(tree):
+    """A tree's leaves (sorted dict keys, list order) as flat CPU tensors:
+    the bit-equality checks of the resumes."""
+    import numpy as np
+    import torch
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flat_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flat_leaves(v)]
+    # the native plane store keeps a 0-d array as shape (1,)
+    return [(torch.as_tensor(np.asarray(tree)) if not torch.is_tensor(tree)
+             else tree.detach().cpu()).reshape(-1)]
+
+
+def trees_equal(a, b):
+    """Two non-empty trees with the same leaves, bit for bit."""
+    import torch
+    la, lb = flat_leaves(a), flat_leaves(b)
+    return len(la) == len(lb) > 0 and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+
+def baseline_phase(dev, w=BASELINE_FULL, on_card=True, profile=False,
+                   card=""):
+    """Phase 10 (a) (see the module docstring): the baseline stage of
+    configs/MipNeRF_baseline.yml, as `python -m nvsr_tpu_torch.cli
+    --config ...` trains it and `--eval images` evaluates it. With
+    on_card=False (a CPU rehearsal at a small `w`) timings are skipped.
+    profile: one eval view under torch.profiler (device time, idle share,
+    host waits). `card`: the card's name and power limit, printed with
+    every time."""
+    import tempfile
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import bridge, experiment
+    from nvsr_tpu_torch.render import render_image
+    from nvsr_tpu_torch.train import baseline_point_fn
+    from nvsr_tpu_torch.utils.io import load_pickle
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn, log):
+        def wrapper(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            log.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    t_phase = time.perf_counter()
+    scene = "lego"
+    val_scene = f"{scene}_DS2"
+    first_iters, resume_iters = 6, 10
+    with tempfile.TemporaryDirectory() as root:
+        cfg = baseline_cfg(w, scene)
+        # the cuts (listed in the output): first_iters iterations, then a
+        # resume to resume_iters; an eval at each run's first and last
+        # iteration; a save every 2 iterations; every iteration's
+        # metrics flushed
+        cfg.experiment.update(validate_every=first_iters, save_every=2,
+                              print_every=1)
+        t0 = time.perf_counter()
+        write_synthetic_scene(os.path.join(root, "synt"), scene, w["image"])
+        print(f"[baseline] cuts: one synthetic {w['image']}^2 scene (group "
+              f"8, trains, 2, validates and joins the consistency "
+              f"iterations), {first_iters} iterations then a resume to "
+              f"{resume_iters}, an eval at each run's first and last "
+              f"iteration, save_every 2, print_every 1; widths as the "
+              f"YAML: {w['layers']} layers x {w['hidden']}, "
+              f"{w['samples']}+{w['samples']} samples, {w['rays']} rays; "
+              f"scene written in {time.perf_counter() - t0:.2f} s")
+
+        iters, saves, evals, losses = [], [], [], []
+
+        def instrument(exp):
+            real_iter = exp.train_iteration
+
+            def iteration(i):
+                sync()
+                t = time.perf_counter()
+                out = real_iter(i)
+                sync()
+                # (consistency_iter, ms) of the iteration
+                iters.append((exp._pending_metrics[-1][1],
+                              (time.perf_counter() - t) * 1e3))
+                return out
+
+            real_scalar = exp.logger.write_scalar
+
+            def write_scalar(name, value, index):
+                if name in ("train/loss", "train/im_inconsistency"):
+                    losses.append(value)
+                return real_scalar(name, value, index)
+
+            exp.train_iteration = iteration
+            exp.logger.write_scalar = write_scalar
+            exp.save_checkpoints = timed(exp.save_checkpoints, saves)
+            exp.evaluate = timed(exp.evaluate, evals)
+            return exp
+
+        exp = instrument(experiment.Experiment(cfg, root_path=root,
+                                               device=dev))
+        if exp.planes_model or exp.planes_buffer is not None:
+            fail("the baseline config built a triplane Experiment")
+        exp.run(max_iters=first_iters)
+        sync()
+
+        # check 1: every flushed loss finite
+        print(f"[baseline] losses {[round(v, 6) for v in losses]} "
+              f"({sum(c for c, _ in iters)} consistency iterations)")
+        if len(losses) != first_iters or not np.all(np.isfinite(losses)):
+            fail(f"flushed losses {losses}")
+
+        # check 2: the logdir in the JAX layout
+        logdir = exp.logdir
+        files = set(os.listdir(logdir))
+        need = {f"checkpoint{first_iters - 1:05d}.ckpt",
+                "checkpoint.ckpt_best", "exp_info.pkl", "time_sig.txt"}
+        ckpt = load_pickle(os.path.join(
+            logdir, f"checkpoint{first_iters - 1:05d}.ckpt"), suffix="ckpt")
+        print(f"[baseline] logdir {sorted(files)}; checkpoint keys "
+              f"{sorted(ckpt)}")
+        if not need <= files or sorted(ckpt) != [
+                "model_coarse_state_dict", "model_fine_state_dict",
+                "optimizer"]:
+            fail(f"logdir misses {sorted(need - files)} or the checkpoint "
+                 f"has keys {sorted(ckpt)}")
+
+        # check 3: the resume starts at the saved start_i with both MLPs
+        # and their Adam state equal to the first run's, bit for bit
+        before = {"mlp": exp.decoder_opt.params,
+                  "adam": exp.decoder_opt.state[0]}
+        cfg.experiment["train_iters"] = resume_iters
+        sync()
+        t0 = time.perf_counter()
+        exp2 = experiment.Experiment(cfg, load_checkpoint="resume",
+                                     root_path=root, device=dev)
+        sync()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        same = {k: trees_equal(v, {"mlp": exp2.decoder_opt.params,
+                                   "adam": exp2.decoder_opt.state[0]}[k])
+                for k, v in before.items()}
+        print(f"[baseline] resume: start_i "
+              f"{exp2.experiment_info['start_i']} (saved {first_iters}); "
+              f"loaded equal to the first run's {same}")
+        if exp2.experiment_info["start_i"] != first_iters \
+                or not all(same.values()):
+            fail("the resume did not load what the first run saved")
+        n_first = len(losses)
+        instrument(exp2).run()
+        sync()
+        if len(losses) - n_first != resume_iters - first_iters \
+                or not np.all(np.isfinite(losses)):
+            fail(f"the resumed run's losses {losses[n_first:]}")
+
+        # check 4: a crop of the val view from the trained weights, on
+        # the device against the port's own CPU render of the same rays
+        with torch.no_grad():
+            view = exp2.i_val[val_scene][0]
+            exp2._eval_pf_cache = {}
+            _, ro, rd, _ = exp2._view_rays(view)
+            h, wd, c = ro.shape[0], ro.shape[1], w["crop"]
+            y0, x0 = (h - c) // 2, (wd - c) // 2
+            ro, rd = ro[y0:y0 + c, x0:x0 + c], rd[y0:y0 + c, x0:x0 + c]
+            rcfg = exp2._mode_render_cfg("validation", val_scene)
+            mine = render_image(*exp2._point_fns_for_eval(val_scene, None),
+                                ro, rd, rcfg, near=2.0, far=6.0).fine.rgb
+            enc = exp2._enc_for(val_scene)
+
+            def cpu_fn(params):
+                return baseline_point_fn(
+                    bridge.nerf_mlp_from_jax(bridge.nerf_mlp_to_jax(params),
+                                             "cpu"), exp2.mlp_cfg, enc)
+
+            t0 = time.perf_counter()
+            ref = render_image(cpu_fn(exp2.decoder_coarse),
+                               cpu_fn(exp2.decoder_fine), ro.cpu(),
+                               rd.cpu(), rcfg, near=2.0,
+                               far=6.0).fine.rgb
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        p_crop = psnr(mine.cpu(), ref)
+        print(f"[baseline] {c}x{c} crop of the val view ({c * c} rays): "
+              f"{'card' if on_card else 'plain'} render vs the CPU render "
+              f"{p_crop:.2f} dB (min {GATE_PSNR_MIN_DB}); rgb mean "
+              f"{mine.mean().item():.4f}; CPU render {cpu_ms:.0f} ms")
+        if not (torch.isfinite(mine).all()
+                and tuple(mine.shape) == (c, c, 3)
+                and p_crop >= GATE_PSNR_MIN_DB):
+            fail("the baseline's render disagrees with the CPU render")
+
+        # check 5: `--eval images` of the logdir: metrics.txt and PNGs
+        # for each eval sequence, from the best checkpoint
+        ev = experiment.Experiment(cfg, eval_mode="images",
+                                   results_path="results", root_path=root,
+                                   device=dev)
+        best = load_pickle(os.path.join(logdir, "checkpoint.ckpt_best"),
+                           suffix="ckpt_best")
+        if not trees_equal(ev.decoder_coarse,
+                           best["model_coarse_state_dict"]):
+            fail("the eval did not load the best checkpoint")
+        n_views = sum(len(v) for v in ev.i_val.values())
+        sync()
+        t0 = time.perf_counter()
+        ev.run()
+        sync()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / max(n_views, 1)
+        for seq in ev.evaluation_sequences:
+            folder = os.path.join(ev.results_dir, seq)
+            with open(os.path.join(folder, "metrics.txt")) as f:
+                metrics = {k: float(v) for k, v in
+                           (line.rsplit(": ", 1) for line in f)}
+            pngs = [fn for _, _, fs in os.walk(folder) for fn in fs
+                    if fn.endswith(".png")]
+            print(f"[baseline] eval {seq}: {len(pngs)} PNGs, metrics "
+                  f"{metrics}")
+            psnrs = [v for k, v in metrics.items()
+                     if k.endswith("/psnr")]
+            if not pngs or not psnrs or not np.all(np.isfinite(psnrs)):
+                fail(f"{seq}: {len(pngs)} PNGs, metrics {metrics}")
+
+        if on_card:
+            def med(xs):
+                return statistics.median(xs) if xs else float("nan")
+            plain = [ms for cons, ms in iters if not cons]
+            cons = [ms for c_, ms in iters if c_]
+            print(f"[baseline] on {card}: iteration ms (each between two "
+                  f"synchronizes, its metrics flushed): median "
+                  f"{med(plain):.2f} of {[round(x, 2) for x in plain]}; "
+                  f"consistency iterations {[round(x, 2) for x in cons]}; "
+                  f"save_checkpoints ms {[round(x, 2) for x in saves]}; "
+                  f"evaluate (training, one view a sequence) ms "
+                  f"{[round(x, 2) for x in evals]}; resume load "
+                  f"{resume_ms:.2f} ms; eval per view (--eval images, "
+                  f"{n_views} views) {eval_ms:.2f} ms")
+        print(f"[baseline] phase (a) in "
+              f"{time.perf_counter() - t_phase:.1f} s"
+              f"{f' on {card}' if card else ''}")
+        if profile:
+            ev._last_view = None
+            profile_run(f"one baseline eval view ({val_scene}, "
+                        f"{'x'.join(map(str, exp2.dataset.hwfDs[view][:2]))})",
+                        lambda: ev.render_eval_image(val_scene, view))
+
+
+def reference_checkpoints(gen, cfg, sr_cfg, w):
+    """Reference-layout torch state dicts at the widths of cfg / sr_cfg /
+    w, drawn from `gen`: two TwoDimPlanesModel decoders (`density_dec.0.l`,
+    `fc_alpha.0`, ..., torch Linear's [out, in] weights, a density bias of
+    1 so the field is not empty, `rot_mats_NON_LEARNED`), the PlanesSR
+    EDSR (`inner_model.` prefix, OIHW, its upscale convs at the
+    Sequential's even indices) and a `.par` of the scene's planes (3
+    positional, 1 view) with their torch Adam states."""
+    import torch
+    from nvsr_tpu_torch.models.plane_sr import edsr_layer_plan
+    from nvsr_tpu_torch.models.triplane import make_rot_mats
+
+    def lin(sd, prefix, i, o):
+        bound = 1.0 / math.sqrt(i)
+        sd[prefix + ".weight"] = (torch.rand((o, i), generator=gen) * 2
+                                  - 1) * bound
+        sd[prefix + ".bias"] = (torch.rand((o,), generator=gen) * 2
+                                - 1) * bound
+
+    def decoder():
+        sd = {}
+        for name, in_ch, n in (
+                ("density_dec", cfg.density_in_channels,
+                 cfg.dec_density_layers),
+                ("rgb_dec", cfg.rgb_in_channels, cfg.dec_rgb_layers)):
+            lin(sd, f"{name}.0.0", in_ch, cfg.dec_channels)
+            for ln in range(n - 1):
+                extra = in_ch if cfg.is_skip_layer(ln) else 0
+                lin(sd, f"{name}.0.{ln + 1}", cfg.dec_channels + extra,
+                    cfg.dec_channels)
+        lin(sd, "fc_alpha.0", cfg.dec_channels, 1)
+        lin(sd, "fc_rgb.0", cfg.dec_channels, 3)
+        sd["fc_alpha.0.bias"].fill_(1.0)
+        for d, m in enumerate(make_rot_mats(cfg.num_planes)):
+            sd[f"coord_projector.rot_mats_NON_LEARNED.{d}"] = \
+                torch.as_tensor(m)
+        return sd
+
+    def conv(o, i, k):
+        std = math.sqrt(2.0 / (k * k * o)) / 10.0
+        return torch.randn((o, i, k, k), generator=gen) * std
+
+    plan = edsr_layer_plan(sr_cfg.n_blocks, sr_cfg.scale_factor)
+    hs, ch = sr_cfg.hidden_size, sr_cfg.in_channels
+    sr = {"inner_model.conv_input.weight": conv(hs, ch, plan["conv_input"])}
+    for i, k in enumerate(plan["blocks"]):
+        sr[f"inner_model.residual.{i}.conv1.weight"] = conv(hs, hs, k)
+        sr[f"inner_model.residual.{i}.conv2.weight"] = conv(hs, hs, k)
+    sr["inner_model.conv_mid.weight"] = conv(hs, hs, plan["conv_mid"])
+    for j, k in enumerate(plan["upscale"]):
+        sr[f"inner_model.upscale.{2 * j}.weight"] = conv(4 * hs, hs, k)
+    sr["inner_model.conv_output.weight"] = conv(ch, hs, plan["conv_output"])
+
+    shapes = [(1, ch, w["res"], w["res"])] * 3 + [
+        (1, ch, w["view_res"], w["view_res"])]
+    par = {"params": {f"sclego_DS8_PlRes{w['res']}_{w['view_res']}_D{d}":
+                      0.03 * torch.randn(s, generator=gen)
+                      for d, s in enumerate(shapes)},
+           "opt_states": [{"step": torch.tensor(7.0),
+                           "exp_avg": 1e-3 * torch.randn(s, generator=gen),
+                           "exp_avg_sq": 1e-6 * torch.rand(s, generator=gen)}
+                          for s in shapes],
+           "coords_normalization": torch.tensor(
+               [[-4, -4, -4, -math.pi, -math.pi / 2],
+                [4, 4, 4, math.pi, math.pi / 2]], dtype=torch.float32)}
+    return decoder(), decoder(), sr, par
+
+
+def convert_phase(dev, w=EVAL_FULL, on_card=True, card=""):
+    """Phase 10 (b) (see the module docstring): reference checkpoints at
+    TrainModels width, saved with torch.save, read back with
+    convert.load_torch_checkpoint and converted onto the card, then SR and
+    phase 3's frame through the fused kernel with the converted weights,
+    against the plain version. With on_card=False (a CPU rehearsal at a
+    small `w`) launch counts and timings are skipped."""
+    import tempfile
+    import numpy as np
+    import torch
+    from nvsr_tpu_torch import convert, kernels
+    from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
+    from nvsr_tpu_torch.models.triplane import TriplaneConfig, make_rot_mats
+    from nvsr_tpu_torch.ops.geometry import get_ray_bundle
+    from nvsr_tpu_torch.render import (RenderConfig, make_triplane_point_fn,
+                                       render_image)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    cfg = TriplaneConfig(proj_combination="avg",
+                         viewdir_proj_combination="concat_pos",
+                         skip_connect_every=3, gather_table_dtype="bfloat16",
+                         compute_dtype="bfloat16",
+                         num_plane_channels=w["channels"])
+    sr_cfg = PlaneSRConfig(in_channels=w["channels"],
+                           out_channels=w["channels"],
+                           hidden_size=w["sr_hidden"],
+                           n_blocks=w["sr_blocks"],
+                           scale_factor=w["sr_scale"],
+                           compute_dtype="bfloat16")
+    dec_c, dec_f, sr_sd, par = reference_checkpoints(
+        torch.Generator().manual_seed(10), cfg, sr_cfg, w)
+    with tempfile.TemporaryDirectory() as root:
+        paths = {name: os.path.join(root, name) for name in
+                 ("checkpoint.ckpt", "SR_checkpoint.ckpt", "lego.par")}
+        torch.save({"model_coarse_state_dict": dec_c,
+                    "model_fine_state_dict": dec_f},
+                   paths["checkpoint.ckpt"])
+        torch.save({"SR_model": sr_sd}, paths["SR_checkpoint.ckpt"])
+        torch.save(par, paths["lego.par"])
+        sync()
+        t0 = time.perf_counter()
+        ck = convert.load_torch_checkpoint(paths["checkpoint.ckpt"])
+        dc, rot = convert.convert_triplane_decoder(
+            ck["model_coarse_state_dict"], device=dev)
+        df, _ = convert.convert_triplane_decoder(
+            ck["model_fine_state_dict"], device=dev)
+        sr_params = convert.convert_plane_sr(convert.load_torch_checkpoint(
+            paths["SR_checkpoint.ckpt"])["SR_model"], device=dev)
+        planes, box, moments = convert.convert_par_file(
+            convert.load_torch_checkpoint(paths["lego.par"]), device=dev)
+        sync()
+        convert_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(os.path.getsize(p) for p in paths.values())
+    ok = (torch.equal(rot.cpu(), torch.as_tensor(make_rot_mats(3)))
+          and tuple(planes["pos"].shape) == (3, w["channels"], w["res"],
+                                             w["res"])
+          and moments is not None and moments["count"] == 7
+          and len(sr_params["inner"]["blocks"]) == w["sr_blocks"]
+          and torch.equal(dc["members"][0]["density"][0]["w"].cpu(),
+                          dec_c["density_dec.0.0.weight"].T)
+          and planes["pos"].device.type == torch.device(dev).type)
+    print(f"[convert] {nbytes / 1e6:.1f} MB of reference checkpoints (two "
+          f"4+4x{cfg.dec_channels} decoders, EDSR {sr_cfg.hidden_size}x"
+          f"{sr_cfg.n_blocks} x{sr_cfg.scale_factor}, a .par of 3x"
+          f"{w['channels']}x{w['res']}^2 + {w['channels']}x"
+          f"{w['view_res']}^2 planes with Adam moments) read and "
+          f"converted onto {torch.device(dev).type} in {convert_ms:.1f} ms"
+          f"{f' on {card}' if card else ''}; layout checks "
+          f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the converted trees do not hold what the checkpoints hold")
+
+    image = w["image"]
+    ro, rd = get_ray_bundle(image, image, 0.5 * image / np.tan(0.3),
+                            torch.as_tensor(camera([3.8, 0.5, 0.7]),
+                                            device=dev))
+    occ = np.array([[-1.4, -1.1, -1.1], [1.5, 1.3, 1.2]], np.float32)
+    rcfg = RenderConfig(num_coarse=16, num_fine=16, perturb=False,
+                        ray_block=RAY_BLOCK)
+    frame_kernels = (kernels.triplane_render_sigma_only,
+                     kernels.triplane_render_full)
+    with torch.no_grad():
+        for k in kernels.KERNELS:
+            k.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        planes_sr = apply_plane_sr(sr_params, sr_cfg, planes["pos"])
+        pf_c = make_triplane_point_fn(dc, cfg, planes["pos"], planes["view"],
+                                      box, rot_mats=rot, tile_rays=256,
+                                      sigma_only=True)
+        pf_f = make_triplane_point_fn(df, cfg, planes_sr, planes["view"],
+                                      box, rot_mats=rot, tile_rays=256)
+        rgb = render_image(pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0,
+                           occ_aabb=occ, tile=16).fine.rgb
+        sync()
+        frame_s = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels.KERNELS}
+        plain = render_image(
+            plain_point_fn(dc, cfg, planes["pos"], planes["view"], box,
+                           True),
+            plain_point_fn(df, cfg, planes_sr, planes["view"], box, False),
+            ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
+            tile=16).fine.rgb
+    p = psnr(rgb, plain)
+    blocks = -(-image * image // RAY_BLOCK)
+    want = {k.symbol: 0 for k in kernels.KERNELS}
+    want.update({k.symbol: blocks for k in frame_kernels})
+    print(f"[convert] SR + {image}x{image} frame on the converted weights "
+          f"in {frame_s:.3f} s (first run{f' on {card}' if card else ''}); "
+          f"kernel vs plain "
+          f"{p:.2f} dB (min {GATE_PSNR_MIN_DB}); rgb mean "
+          f"{rgb.mean().item():.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }, every other entry 0)")
+    if (tuple(rgb.shape) != (image, image, 3)
+            or not torch.isfinite(rgb).all() or p < GATE_PSNR_MIN_DB):
+        fail("the frame on the converted weights disagrees with the plain "
+             "version")
+    if on_card and launches != want:
+        fail(f"conversion frame launches {launches}, expected {want}")
+    print(f"[convert] phase (b) in {time.perf_counter() - t_phase:.1f} s"
+          f"{f' on {card}' if card else ''}")
+
+
+# the SR branches of phase 10 (c): SRResNet at the SRGAN generator's
+# published width (64 channels, 16 residual blocks) on TrainModels'
+# 3x48x200^2 planes x4; EDSR at TrainModels width in tiles of `tile`
+SR_GAPS_FULL = dict(channels=48, res=200, sr_hidden=256, sr_blocks=32,
+                    sr_scale=4, srresnet_hidden=64, srresnet_blocks=16,
+                    tile=100, reps=3)
+# tiled against full-plane EDSR: in f32 (TF32 off) the same sums over
+# another input extent, so cuDNN may pick another algorithm per shape:
+# the largest difference within 1e-3 of the trunk output's largest; in
+# bf16, >= GATE_PSNR_MIN_DB between the two
+TILED_F32_RTOL = 1e-3
+
+
+def flat_params(tree):
+    """The tensors of a parameter tree, in place."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in flat_params(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flat_params(v)]
+    return [tree]
+
+
+def sr_gaps_phase(dev, w=SR_GAPS_FULL, on_card=True, card=""):
+    """Phase 10 (c) (see the module docstring): SRResNet (with and without
+    BatchNorm, eval and train mode) and EDSR with tile_size against the
+    full-plane EDSR, in f32 and bf16, each timed. With on_card=False (a
+    CPU rehearsal at a small `w`) timings are skipped."""
+    import dataclasses as dc
+    import torch
+    from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig,
+                                                apply_plane_sr,
+                                                init_plane_sr_params)
+    from nvsr_tpu_torch.ops.resize import upsample_plane
+
+    t_phase = time.perf_counter()
+    on = f" on {card}" if card else ""
+    gen = torch.Generator().manual_seed(11)
+    ch, res = w["channels"], w["res"]
+    planes = (0.5 * torch.randn((3, ch, res, res), generator=gen)).to(dev)
+
+    def ms(fn):
+        return cuda_ms(fn, warmup=1, reps=w["reps"]) if on_card \
+            else float("nan")
+
+    with torch.no_grad():
+        for no_bn in (False, True):
+            scfg = PlaneSRConfig(arch="SRResNet", in_channels=ch,
+                                 out_channels=ch,
+                                 hidden_size=w["srresnet_hidden"],
+                                 n_blocks=w["srresnet_blocks"],
+                                 scale_factor=4, no_batch_norm=no_bn)
+            params = init_plane_sr_params(gen, scfg, dev)
+            for train in (False, True):
+                out = apply_plane_sr(params, scfg, planes, train=train)
+                t = ms(lambda: apply_plane_sr(params, scfg, planes,
+                                              train=train))
+                print(f"[sr-gaps] SRResNet {scfg.hidden_size}x"
+                      f"{scfg.n_blocks} x4 {'without' if no_bn else 'with'}"
+                      f" BN, {'train' if train else 'eval'}: "
+                      f"{tuple(out.shape)}, |out| max "
+                      f"{out.abs().max().item():.4f}, {t:.2f} ms{on}")
+                if (tuple(out.shape) != (3, ch, 4 * res, 4 * res)
+                        or not torch.isfinite(out).all()):
+                    fail("SRResNet's output is not finite or of the wrong "
+                         "shape")
+
+        ecfg = PlaneSRConfig(in_channels=ch, out_channels=ch,
+                             hidden_size=w["sr_hidden"],
+                             n_blocks=w["sr_blocks"],
+                             scale_factor=w["sr_scale"])
+        # the reference init times 5, so the trunk's output (~0.1 of the
+        # planes') is not negligible beside the residual, as it is at the
+        # init (~1e-4)
+        params = init_plane_sr_params(gen, ecfg, dev)
+        for p_ in flat_params(params):
+            p_.mul_(5.0)
+        up = upsample_plane(planes, ecfg.scale_factor,
+                            align_corners=ecfg.align_corners,
+                            mode=ecfg.plane_interp)
+        for dtype in (None, "bfloat16"):
+            full_cfg = dc.replace(ecfg, compute_dtype=dtype)
+            tiled_cfg = dc.replace(full_cfg, tile_size=w["tile"])
+            full = apply_plane_sr(params, full_cfg, planes)
+            tiled = apply_plane_sr(params, tiled_cfg, planes)
+            t_full = ms(lambda: apply_plane_sr(params, full_cfg, planes))
+            t_tiled = ms(lambda: apply_plane_sr(params, tiled_cfg, planes))
+            trunk = (full.float() - up).abs().max().item()
+            err = (full.float() - tiled.float()).abs().max().item()
+            p = psnr(full, tiled)
+            agree = "bit-equal" if err == 0 else (
+                f"max diff {err:.3e} ({err / trunk:.3e} of the trunk "
+                f"output's largest), {p:.2f} dB")
+            print(f"[sr-gaps] EDSR {ecfg.hidden_size}x{ecfg.n_blocks} "
+                  f"x{ecfg.scale_factor} {dtype or 'float32'} on 3x{ch}x"
+                  f"{res}^2 (trunk output up to {trunk:.3e}): tiles of "
+                  f"{w['tile']} vs the full plane {agree}; full "
+                  f"{t_full:.2f} ms, tiled {t_tiled:.2f} ms{on}")
+            if tuple(tiled.shape) != tuple(full.shape) \
+                    or not torch.isfinite(tiled).all():
+                fail("tiled EDSR: wrong shape or not finite")
+            if dtype is None and err > TILED_F32_RTOL * trunk:
+                fail(f"tiled EDSR in f32 differs by {err / trunk:.3e} of "
+                     f"the trunk output (bound {TILED_F32_RTOL})")
+            if dtype is not None and p < GATE_PSNR_MIN_DB:
+                fail(f"tiled EDSR in bf16: {p:.2f} dB from the full plane")
+    print(f"[sr-gaps] phase (c) in {time.perf_counter() - t_phase:.1f} s"
+          f"{on}")
 
 
 def flagship(dev):
@@ -2607,6 +3224,11 @@ def main(profile=False):
     # -- 9. the Experiment's training half --------------------------------
     experiment_train_phase(dev, profile=profile, card=card,
                            host_waits=host_waits)
+
+    # -- 10. the baseline stage, reference conversion, the SR branches ---
+    baseline_phase(dev, profile=profile, card=card)
+    convert_phase(dev, card=card)
+    sr_gaps_phase(dev, card=card)
 
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (

@@ -16,5 +16,10 @@ and backward as the Hopper kernels `csrc/plane_sample.cu` (host side in
 standalone decoder and row gather; and the Experiment's eval half
 (`experiment.Experiment`, `cli.py`, with copies of the JAX package's
 host modules in `utils/`, `data/` and `scenes.py`), which loads a logdir
-that the JAX package wrote and evaluates it through those kernels.
+that the JAX package wrote and evaluates it through those kernels; its
+training half; and the rest of what the JAX package does on one device:
+the Mip-NeRF / PE-NeRF baseline (`ops/encoding.py`,
+`models/nerf_mlp.py`, the mip render, `train.train_step_baseline`),
+reference-checkpoint conversion (`convert.py`), SRResNet and tiled EDSR.
+Multi-device execution (`parallel/`) is not ported.
 """

@@ -40,6 +40,14 @@ def plane_sr_from_jax(tree, device="cuda"):
     return _to_torch(tree, device)
 
 
+def nerf_mlp_from_jax(tree, device="cuda"):
+    """Baseline NeRF MLP params {"layer1", "layers_xyz": [...],
+    "layers_dir"?: [...], "fc_alpha"?, "fc_rgb"?, "fc_feat"?, "fc_out"?}
+    (each {"w": [in, out], "b"}) -> the same structure of f32 tensors on
+    `device`."""
+    return _to_torch(tree, device)
+
+
 def planes_from_jax(tree, device="cuda"):
     """A scene's plane dict {"pos": [P, C, H, W], "view": [Cv, Hv, Wv]?}
     -> the same dict of f32 tensors on `device`."""
@@ -66,6 +74,12 @@ def decoder_to_jax(tree):
 
 def plane_sr_to_jax(tree):
     """Plane-SR params of tensors -> numpy (the checkpoints' SR_model)."""
+    return _to_numpy(tree)
+
+
+def nerf_mlp_to_jax(tree):
+    """Baseline NeRF MLP params of tensors -> numpy (the baseline
+    checkpoints' model_coarse_state_dict / model_fine_state_dict)."""
     return _to_numpy(tree)
 
 

@@ -37,8 +37,14 @@ device in the JAX key's place. Metrics stay on the device until
 pose, pixel indices and target go to the card through pinned memory,
 without a host wait.
 
-Not ported yet, each raising NotImplementedError: the baseline NeRF
-model, ROADMAP Queue 1 #5; `experiment.data_parallel`, #6.
+The baseline NeRF (a config whose `models.coarse.type` is not
+TwoDimPlanesModel, as configs/MipNeRF_baseline.yml) has no planes, SR net
+or kernel: its two MLPs train through `train.train_step_baseline` and its
+eval renders take the plain path, with the same checkpoint layout as
+JAX's baseline.
+
+Not ported yet, raising NotImplementedError: `experiment.data_parallel`,
+ROADMAP Queue 1 #6.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ import torch
 
 from nvsr_tpu_torch import bridge
 from nvsr_tpu_torch.data.dataset import MultiSceneDataset
+from nvsr_tpu_torch.models.nerf_mlp import (NeRFMLPConfig,
+                                            init_nerf_mlp_params)
 from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig, apply_plane_sr,
                                             init_plane_sr_params,
                                             sr_scale_factor)
@@ -78,9 +86,10 @@ from nvsr_tpu_torch.scenes import (Counter, ImageSampler, SceneCoupler,
                                    extract_ds_and_res, get_plane_name,
                                    get_scene_configs, subsample_eval_scenes)
 from nvsr_tpu_torch.train import (ModuleOptimizer, PlateauScheduler,
-                                  StepFlags, choose_patch_pixels,
-                                  choose_random_pixels, choose_tile_pixels,
-                                  train_step)
+                                  StepFlags, baseline_point_fn,
+                                  choose_patch_pixels, choose_random_pixels,
+                                  choose_tile_pixels, train_step,
+                                  train_step_baseline)
 from nvsr_tpu_torch.utils.config import (CfgNode,
                                          assert_compatible_model_config,
                                          get_config)
@@ -145,10 +154,6 @@ class Experiment:
         self.planes_model = ("coarse" not in cfg.get("models", {})
                              or cfg.models.coarse.get("type")
                              == "TwoDimPlanesModel")
-        if not self.planes_model:
-            raise NotImplementedError(
-                "the baseline NeRF model is not ported yet: ROADMAP "
-                "Queue 1 #5")
         self.what2train = list(cfg.get_path("nerf.train.what", []))
         assert all(m in ("LR_planes", "decoder", "SR")
                    for m in self.what2train)
@@ -195,7 +200,8 @@ class Experiment:
             self.pretrained_model_folder = os.path.join(
                 root_path, self.pretrained_model_folder)
         pretrained_cfg = None
-        if not self.decoder_training or self.pretrained_model_folder:
+        if self.planes_model and (not self.decoder_training
+                                  or self.pretrained_model_folder):
             if self.pretrained_model_folder and os.path.isfile(
                     self.pretrained_model_folder):
                 self.pretrained_model_folder = os.path.dirname(
@@ -232,7 +238,8 @@ class Experiment:
         self.planes_updating = "LR_planes" in self.what2train
 
         # --- scene coupler ----------------------------------------------
-        if (not self.planes_updating or self.pretrained_model_folder) \
+        if self.planes_model and (not self.planes_updating
+                                  or self.pretrained_model_folder) \
                 and pretrained_cfg is not None:
             for spec in get_scene_configs(
                     {k: v for p in pretrained_cfg.dataset["dir"].values()
@@ -243,7 +250,8 @@ class Experiment:
             list(set(available_scenes + ds.val_only_scene_ids)),
             planes_res="".join(m[:2] for m in self.what2train
                                if "_planes" in m),
-            num_pos_planes=cfg.get_path("models.coarse.num_planes", 3),
+            num_pos_planes=(cfg.get_path("models.coarse.num_planes", 3)
+                            if self.planes_model else 0),
             training_scenes=list(self.i_train.keys()))
 
         # --- eval tagging -----------------------------------------------
@@ -437,6 +445,8 @@ class Experiment:
     # construction helpers
     # ------------------------------------------------------------------
     def _models_to_save(self):
+        if not self.planes_model:
+            return ["decoder"]
         out = []
         if "decoder" in self.what2train:
             out.append("decoder")
@@ -447,21 +457,70 @@ class Experiment:
 
     def _build_models(self):
         cfg = self.cfg
+        fine_cfg = cfg.models.get("fine", CfgNode())
+        self.share_coarse_fine = fine_cfg.get("type") == "use_same"
+        self.mlp_cfg = self.enc_cfg = None
+        if not self.planes_model:
+            self._build_baseline_models()
+            return
         self.model_cfg = TriplaneConfig.from_cfg(cfg.models.coarse, cfg.nerf)
         self.rot_mats = make_rot_mats(self.model_cfg.num_planes)
         self.decoder_coarse = init_decoder_params(
             self.generator, self.model_cfg, self.device)
-        fine_cfg = cfg.models.get("fine", CfgNode())
-        self.share_coarse_fine = fine_cfg.get("type") == "use_same"
         self.decoder_fine = None if self.share_coarse_fine else \
             init_decoder_params(self.generator, self.model_cfg, self.device)
+
+    def _build_baseline_models(self):
+        """The baseline's coarse and fine NeRF MLPs. With mip, the xyz
+        encoding is IPE of degrees 0 .. num_encoding_fn_xyz - 1 with no raw
+        xyz; enc_cfg is train_step_baseline's, its ds_factor filled per
+        scene from the scene id."""
+        cfg = self.cfg
+        mc = cfg.models.coarse
+        mip = cfg.nerf.get("encode_position_fn") == "mip"
+        include_xyz = mc.get("include_input_xyz", True) and not mip
+        multires = mc.get("num_encoding_fn_xyz", 6) + 1
+        common = dict(num_layers=mc.get("num_layers", 4),
+                      hidden_size=mc.get("hidden_size", 128),
+                      skip_connect_every=mc.get("skip_connect_every", 4),
+                      use_viewdirs=cfg.nerf.get("use_viewdirs", True))
+        if mip:
+            self.mlp_cfg = NeRFMLPConfig(
+                input_dim_xyz=3 * 2 * (multires - 1),
+                input_dim_dir=((3 if mc.get("include_input_dir", True)
+                                else 0)
+                               + 2 * 3 * mc.get("num_encoding_fn_dir", 4)),
+                **common)
+        else:
+            self.mlp_cfg = NeRFMLPConfig(
+                num_encoding_fn_xyz=mc.get("num_encoding_fn_xyz", 6),
+                num_encoding_fn_dir=mc.get("num_encoding_fn_dir", 4),
+                include_input_xyz=include_xyz,
+                include_input_dir=mc.get("include_input_dir", True),
+                **common)
+        self.enc_cfg = (mc.get("num_encoding_fn_xyz", 6),
+                        mc.get("num_encoding_fn_dir", 4), include_xyz,
+                        mc.get("include_input_dir", True), mip, 1, multires)
+        self.decoder_coarse = init_nerf_mlp_params(
+            self.generator, self.mlp_cfg, self.device)
+        self.decoder_fine = None if self.share_coarse_fine else \
+            init_nerf_mlp_params(self.generator, self.mlp_cfg, self.device)
+        self.model_cfg = None
+        self.rot_mats = None
+
+    def _enc_for(self, scene_id: str) -> tuple:
+        """The baseline's enc_cfg with the scene's downsampling factor
+        (its id's _DS<n>), which sets the mip pixel radius."""
+        enc = list(self.enc_cfg)
+        enc[5] = int(re.search(r"(?<=_DS)(\d)+", scene_id).group(0))
+        return tuple(enc)
 
     def _build_sr(self):
         cfg = self.cfg
         self.sr_params = None
         self.sr_cfg = None
         self.sr_checkpoint_source = None
-        if not self.sr_experiment:
+        if not self.sr_experiment or not self.planes_model:
             return
         sr_section = cfg.get("super_resolution", CfgNode())
         if "SR" not in self.what2train and self.pretrained_model_folder \
@@ -494,7 +553,7 @@ class Experiment:
         self.sr_opt = None
         if self.eval_mode:
             return
-        if self.decoder_training:
+        if self.decoder_training or not self.planes_model:
             params = {"dc": self.decoder_coarse}
             if not self.share_coarse_fine and self.decoder_fine is not None:
                 params["df"] = self.decoder_fine
@@ -510,13 +569,15 @@ class Experiment:
     # checkpoints
     # ------------------------------------------------------------------
     def _decoder_state(self):
-        state = {"model_coarse_state_dict":
-                 bridge.decoder_to_jax(self.decoder_coarse)}
+        to_jax = bridge.decoder_to_jax if self.planes_model \
+            else bridge.nerf_mlp_to_jax
+        state = {"model_coarse_state_dict": to_jax(self.decoder_coarse)}
         if self.decoder_fine is not None:
-            state["model_fine_state_dict"] = bridge.decoder_to_jax(
-                self.decoder_fine)
-        state["rot_mats"] = np.asarray(self.rot_mats)
-        state["models_config"] = self.cfg.get("models", CfgNode()).to_dict()
+            state["model_fine_state_dict"] = to_jax(self.decoder_fine)
+        if self.planes_model:
+            state["rot_mats"] = np.asarray(self.rot_mats)
+            state["models_config"] = self.cfg.get("models",
+                                                  CfgNode()).to_dict()
         if self.decoder_opt is not None:
             state["optimizer"] = bridge.optimizer_state_to_jax(
                 self.decoder_opt.state)
@@ -557,27 +618,30 @@ class Experiment:
                         self.sr_opt.state = ckpt["SR_optimizer"]
                 self.sr_checkpoint_source = path
 
-        if (self.load_checkpoint == ""
-                or "decoder" not in self.what2train):
+        frozen_decoder = (self.planes_model
+                          and "decoder" not in self.what2train)
+        if self.load_checkpoint == "" or frozen_decoder:
             src = self.pretrained_model_folder
             find_best = load_best or "decoder" not in self.what2train
         else:
             src = self.load_checkpoint
-            find_best = load_best or "decoder" not in self.what2train
+            find_best = load_best or frozen_decoder
         path = find_latest_checkpoint(src, sr=False, find_best=find_best)
         if path is None:
             return
         ckpt = load_pickle(path, suffix="ckpt_best"
                            if path.endswith("_best") else "ckpt")
-        if "models_config" in ckpt:
+        if self.planes_model and "models_config" in ckpt:
             assert_compatible_model_config(
                 ckpt["models_config"], self.cfg.get("models",
                                                     CfgNode()).to_dict())
-        self.decoder_coarse = bridge.decoder_from_jax(
-            ckpt["model_coarse_state_dict"], self.device)
+        from_jax = bridge.decoder_from_jax if self.planes_model \
+            else bridge.nerf_mlp_from_jax
+        self.decoder_coarse = from_jax(ckpt["model_coarse_state_dict"],
+                                       self.device)
         if "model_fine_state_dict" in ckpt and not self.share_coarse_fine:
-            self.decoder_fine = bridge.decoder_from_jax(
-                ckpt["model_fine_state_dict"], self.device)
+            self.decoder_fine = from_jax(ckpt["model_fine_state_dict"],
+                                         self.device)
         if "rot_mats" in ckpt:
             self.rot_mats = np.asarray(ckpt["rot_mats"])
             # the point fns take the fixed bases (models.triplane
@@ -629,6 +693,10 @@ class Experiment:
     # planes
     # ------------------------------------------------------------------
     def _build_planes(self):
+        self.planes_lr_scheduler = None
+        if not self.planes_model:
+            self.planes_buffer = None
+            return
         cfg = self.cfg
         folders = []
         if self.planes_updating:
@@ -681,7 +749,6 @@ class Experiment:
                 self.store.save(scene, planes)
 
         # the planes' plateau lr scheduler, stepped at print cadence
-        self.planes_lr_scheduler = None
         sched = cfg.get_path("optimizer.lr_scheduler", None)
         if sched is not None and not self.eval_mode:
             patience = int(np.ceil(sched["patience"]
@@ -709,7 +776,7 @@ class Experiment:
     # ------------------------------------------------------------------
     def _mode_render_cfg(self, mode: str, scene_id: str) -> RenderConfig:
         cfg = self.cfg
-        stop_coarse = (self.sr_params is not None
+        stop_coarse = (self.planes_model and self.sr_params is not None
                        and not self.decoder_training
                        and not getattr(self, "apply_sr_to_coarse", False))
         return RenderConfig.from_cfg(
@@ -732,6 +799,12 @@ class Experiment:
 
     def _point_fns_for_eval_uncached(self, scene_id, planes,
                                      skip_sr=False, tiled=True):
+        if not self.planes_model:
+            enc = self._enc_for(scene_id)
+            dc = self.decoder_coarse
+            df = dc if self.share_coarse_fine else self.decoder_fine
+            return (baseline_point_fn(dc, self.mlp_cfg, enc),
+                    baseline_point_fn(df, self.mlp_cfg, enc))
         sr_scene = (self.sr_params is not None
                     and self.scene_coupler.should_SR(scene_id)
                     and not skip_sr)
@@ -785,7 +858,8 @@ class Experiment:
         (bilinear planes, <= 64 channels, a batch of whole tiles), else
         None. The coarse pass's plane gathers then run the trainable
         plane sampler's kernels in both directions."""
-        if not self.cfg.get_path("nerf.train.tiled_gather", False):
+        if (not self.planes_model
+                or not self.cfg.get_path("nerf.train.tiled_gather", False)):
             return None
         if (self.model_cfg.plane_interp != "bilinear"
                 or self.model_cfg.num_plane_channels > HALF):
@@ -804,7 +878,7 @@ class Experiment:
         enabled = self.cfg.get_path("nerf.validation.tiled_gather", None)
         if enabled is None:
             enabled = self.device.type == "cuda"
-        if not enabled:
+        if not enabled or not self.planes_model:
             return None
         if (self.model_cfg.plane_interp not in ("bilinear", "bicubic")
                 or self.model_cfg.num_plane_channels > HALF):
@@ -849,8 +923,9 @@ class Experiment:
 
     def _occ_aabb_for(self, scene_id, planes):
         """The scene's occupied box on the device, or None without
-        occupancy bounds."""
-        if self.occupancy_cfg is None or planes.occ_aabb is None:
+        occupancy bounds (or planes: the baseline)."""
+        if (self.occupancy_cfg is None or planes is None
+                or planes.occ_aabb is None):
             return None
         return self._on_device("occ_aabb", scene_id, planes.occ_aabb)
 
@@ -859,14 +934,17 @@ class Experiment:
                           skip_sr: bool = False):
         """Render one full eval view -> (RenderResult, target image)."""
         img, ro, rd, hwf = self._view_rays(img_idx)
-        planes = self.planes_buffer.load_scene(
-            scene_id, load_best=not self.planes_buffer.optimize)
+        planes = None
+        if self.planes_model:
+            planes = self.planes_buffer.load_scene(
+                scene_id, load_best=not self.planes_buffer.optimize)
         tiled = self.eval_tile_cfg(scene_id) is not None
         scene_type = self.dataset.scene_types.get(
             scene_id.replace("_train", ""), "synt")
         sc_cfg = self.cfg.dataset[scene_type]
         rcfg = self._mode_render_cfg("validation", scene_id)
-        if self.cfg.get_path("models.coarse.plane_stats", False):
+        if self.planes_model and self.cfg.get_path(
+                "models.coarse.plane_stats", False):
             self._update_plane_coverage(scene_id, planes, ro, rd, sc_cfg,
                                         rcfg)
         # "kernel or reference", no ladder: the JAX package escalates an
@@ -929,7 +1007,8 @@ class Experiment:
 
     def _maybe_update_occupancy(self, scene_id: str, iteration: int):
         occ = self.occupancy_cfg
-        if occ is None or not self.planes_buffer.optimize:
+        if occ is None or not self.planes_model \
+                or not self.planes_buffer.optimize:
             return
         if iteration < occ["warmup_iters"]:
             return
@@ -1061,55 +1140,68 @@ class Experiment:
                 self.sr_opt.zero()
 
         rcfg = self._mode_render_cfg("train", scene_id)
-        member = int(self.host_rng.integers(self.model_cfg.ensemble_size))
-        self._maybe_update_occupancy(scene_id, iteration)
-        planes = self.planes_buffer.get(scene_id)
-        occ_aabb = self._occ_aabb_for(scene_id, planes)
-        if occ_aabb is not None:
-            rays = tighten_bundle(
-                rays, occ_aabb,
-                tile_rays=train_tc.tile_rays if train_tc is not None
-                else None)
-        sr_loss_cfg = cfg.get_path("super_resolution.training.loss",
-                                   "fine") if self.sr_experiment else "both"
-        trains_lr = any(m in self.what2train for m in ("decoder",
-                                                       "LR_planes"))
-        occ = self.occupancy_cfg
-        flags = StepFlags(
-            sr_iter=sr_iter and self.sr_params is not None,
-            consistency_iter=consistency_iter,
-            detach_lr_planes=cfg.get_path("nerf.train.detach_LR_planes",
-                                          False),
-            apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse", False),
-            compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
-            compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
-            rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
-            im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
-            ds_factor=coupler_ds,
-            share_coarse_fine=self.share_coarse_fine,
-            member=member,
-            plane_rank=planes.rank,
-            plane_resolution=self._scene_plane_res(scene_id),
-            train_planes=self.planes_buffer.optimize,
-            train_decoder=self.decoder_opt is not None,
-            train_sr=self.sr_opt is not None,
-            track_surface_aabb=(occ is not None and occ["mode"] == "surface"
-                                and self.planes_buffer.optimize),
-            surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
-            tile_cfg=train_tc)
-        metrics, grads = train_step(
-            self.decoder_coarse, self.decoder_fine, self.sr_params,
-            planes.params(), self._on_device("box", scene_id, planes.box),
-            rays, target, self.render_generator,
-            model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
-            flags=flags)
-        if flags.track_surface_aabb:
-            # device tensors, fetched in one copy at the commit
-            self._occ_window.setdefault(scene_id, []).append(
-                (metrics.pop("surf_w"), metrics.pop("surf_wx"),
-                 metrics.pop("surf_wx2")))
-        if "planes" in grads:
-            self.planes_buffer.apply_grads(scene_id, grads["planes"])
+        if self.planes_model:
+            member = int(self.host_rng.integers(self.model_cfg.ensemble_size))
+            self._maybe_update_occupancy(scene_id, iteration)
+            planes = self.planes_buffer.get(scene_id)
+            occ_aabb = self._occ_aabb_for(scene_id, planes)
+            if occ_aabb is not None:
+                rays = tighten_bundle(
+                    rays, occ_aabb,
+                    tile_rays=train_tc.tile_rays if train_tc is not None
+                    else None)
+            sr_loss_cfg = cfg.get_path(
+                "super_resolution.training.loss",
+                "fine") if self.sr_experiment else "both"
+            trains_lr = any(m in self.what2train for m in ("decoder",
+                                                           "LR_planes"))
+            occ = self.occupancy_cfg
+            flags = StepFlags(
+                sr_iter=sr_iter and self.sr_params is not None,
+                consistency_iter=consistency_iter,
+                detach_lr_planes=cfg.get_path("nerf.train.detach_LR_planes",
+                                              False),
+                apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse", False),
+                compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
+                compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
+                rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
+                im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
+                ds_factor=coupler_ds,
+                share_coarse_fine=self.share_coarse_fine,
+                member=member,
+                plane_rank=planes.rank,
+                plane_resolution=self._scene_plane_res(scene_id),
+                train_planes=self.planes_buffer.optimize,
+                train_decoder=self.decoder_opt is not None,
+                train_sr=self.sr_opt is not None,
+                track_surface_aabb=(occ is not None
+                                    and occ["mode"] == "surface"
+                                    and self.planes_buffer.optimize),
+                surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
+                tile_cfg=train_tc)
+            metrics, grads = train_step(
+                self.decoder_coarse, self.decoder_fine, self.sr_params,
+                planes.params(), self._on_device("box", scene_id, planes.box),
+                rays, target, self.render_generator,
+                model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
+                flags=flags)
+            if flags.track_surface_aabb:
+                # device tensors, fetched in one copy at the commit
+                self._occ_window.setdefault(scene_id, []).append(
+                    (metrics.pop("surf_w"), metrics.pop("surf_wx"),
+                     metrics.pop("surf_wx2")))
+            if "planes" in grads:
+                self.planes_buffer.apply_grads(scene_id, grads["planes"])
+        else:
+            flags = StepFlags(
+                consistency_iter=consistency_iter,
+                im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
+                ds_factor=coupler_ds,
+                share_coarse_fine=self.share_coarse_fine)
+            metrics, grads = train_step_baseline(
+                self.decoder_coarse, self.decoder_fine, rays, target,
+                self.render_generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
+                flags=flags, enc_cfg=self._enc_for(scene_id))
 
         # module-gated optimizer steps
         confinements = self.dataset.module_confinements.get(scene_id, [])
@@ -1119,14 +1211,16 @@ class Experiment:
                  if k in grads and k in self.decoder_opt.params})
         if self.sr_opt is not None and "sr" in grads:
             self.sr_opt.accumulate(grads["sr"])
-        new_drawn = self.planes_buffer.step_cadence()
+        new_drawn = self.planes_buffer.step_cadence() \
+            if self.planes_model else None
         if last_vb:
             if self.decoder_opt is not None:
                 decoder_step = "decoder" not in confinements
                 if "SR" in self.what2train and cfg.get_path(
                         "nerf.train.separate_decoder_sr", False):
                     decoder_step &= not sr_iter
-                if decoder_step and self.decoder_training:
+                if decoder_step and (self.decoder_training
+                                     or not self.planes_model):
                     self.decoder_opt.step()
                 else:
                     self.decoder_opt.zero()
@@ -1227,7 +1321,8 @@ class Experiment:
                 scene_num = cycle if eval_mode else eval_num
                 scene_id = self.dataset.per_im_scene_id[img_idx]
                 group = self.val_strings[scene_num]
-                sr_scene = bool(self.sr_experiment and scene_id
+                sr_scene = bool((not self.planes_model
+                                 or self.sr_experiment) and scene_id
                                 in self.scene_coupler.downsample_couples)
                 out, img_target = self.render_eval_image(scene_id, img_idx)
                 rgb_fine, rgb_coarse = host(out)
@@ -1249,7 +1344,7 @@ class Experiment:
                                 target.transpose(2, 0, 1)[None].copy())))
                         per[group]["im_inconsistency"].append(inc)
                     per[group]["rgb_SR"].append(rgb_fine)
-                    if self.sr_params is not None:
+                    if self.planes_model and self.sr_params is not None:
                         # the render without SR, for the SR-gain metric
                         out_ref, _ = self.render_eval_image(
                             scene_id, img_idx, skip_sr=True)
@@ -1340,16 +1435,24 @@ class Experiment:
     # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
+    def _update_active_scenes(self):
+        """The image sampler draws from the buffer's resident scenes, or
+        from every training scene for the baseline (no planes)."""
+        self.image_sampler.update_active(
+            self.planes_buffer.cur_scenes if self.planes_model
+            else self.training_scenes)
+
     def run(self, max_iters: int = None):
         """Eval mode: draw the scenes and evaluate every view. Otherwise
         train from experiment_info["start_i"] to max_iters (default
         experiment.train_iters), as the JAX package's loop does."""
         cfg = self.cfg
-        self.planes_buffer.draw_scenes()
+        if self.planes_model:
+            self.planes_buffer.draw_scenes()
         if self.eval_mode:
             self.evaluate()
             return
-        self.image_sampler.update_active(self.planes_buffer.cur_scenes)
+        self._update_active_scenes()
 
         train_iters = max_iters if max_iters is not None \
             else cfg.experiment["train_iters"]
@@ -1399,9 +1502,9 @@ class Experiment:
                 t0 = time.time()
                 self.evaluate(iteration)
                 evaluation_time = time.time() - t0
-                self.planes_buffer.draw_scenes()
-                self.image_sampler.update_active(
-                    self.planes_buffer.cur_scenes)
+                if self.planes_model:
+                    self.planes_buffer.draw_scenes()
+                self._update_active_scenes()
                 training_time = 0.0
                 self.experiment_info["eval_counter"] += 1
                 window_t0 = time.time()
@@ -1417,14 +1520,16 @@ class Experiment:
                       % (iteration,
                          np.mean(print_loss) if print_loss else "n/a",
                          np.mean(print_psnr) if print_psnr else "n/a"))
-                if self.planes_lr_scheduler is not None and print_loss:
+                if (self.planes_lr_scheduler is not None and print_loss
+                        and self.planes_model):
                     self.planes_buffer.set_lr(
                         self.planes_lr_scheduler.step(
                             float(np.mean(print_loss))))
                 print_loss, print_psnr = [], []
 
             save_now = (self.scenes_cycle_counter.check_and_reset()
-                        if self.decoder_training else False)
+                        if (self.planes_model and self.decoder_training)
+                        else False)
             if isinstance(save_every, int):
                 save_now |= iteration % save_every == 0
             else:
@@ -1449,7 +1554,7 @@ class Experiment:
                                 * no_improvement_iters):
                             quit_training = True
                 recently_saved = time.time()
-                if self.planes_buffer.optimize:
+                if self.planes_model and self.planes_buffer.optimize:
                     self.planes_buffer.save_params()
                     if save_as_best:
                         self.planes_buffer.save_params(as_best=True)

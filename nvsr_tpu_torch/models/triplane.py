@@ -372,6 +372,20 @@ def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
                               member=member, sigma_only=sigma_only)
 
 
+def apply_triplane(params, cfg: TriplaneConfig, planes_pos, plane_view, box,
+                   x, *, member: int = 0, noise_generator=None,
+                   plane_resolution: Optional[int] = None, rot_mats=None):
+    """The reference-signature forward: [N, 3 (+3)] points (+ unit
+    viewdirs) -> [N, 4], the view plane sampled per point."""
+    view_proj = None
+    if cfg.use_viewdirs:
+        view_proj = sample_viewdir_plane(plane_view, x[..., 3:], box, cfg)
+    return apply_triplane_points(
+        params, cfg, planes_pos, box, x[..., :3], view_proj, member=member,
+        noise_generator=noise_generator, plane_resolution=plane_resolution,
+        rot_mats=rot_mats)
+
+
 def make_density_fn(params, cfg: TriplaneConfig, planes_pos, box, *,
                     member: int = 0, rot_mats=None):
     """Density-only evaluator [N, 3] world xyz -> [N] sigma logits: the

@@ -236,9 +236,9 @@ def view_rows(vp_ray, cvp: int) -> torch.Tensor:
 def geometry_args(box, rot) -> np.ndarray:
     """[24] f32 kernel geometry (host array, passed to the kernel by
     value): box min (3), box max (3), then rot[p, c, 1 + k] for p, c < 3
-    and k < 2. `box` may be a tensor on any device."""
-    if torch.is_tensor(box):
-        box = box.detach().cpu().numpy()
+    and k < 2. `box` and `rot` may be tensors on any device."""
+    box, rot = (x.detach().cpu().numpy() if torch.is_tensor(x) else x
+                for x in (box, rot))
     box = np.asarray(box, dtype=np.float32)
     rot = np.asarray(rot, dtype=np.float32)
     return np.concatenate([box[0, :3], box[1, :3],

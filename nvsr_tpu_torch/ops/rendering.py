@@ -15,7 +15,8 @@ class RenderOutputs(NamedTuple):
     acc: torch.Tensor      # [R]
     weights: torch.Tensor  # [R, S]
     depth: torch.Tensor    # [R]
-    # per-sample depths the weights refer to (return_z only)
+    # per-sample depths the weights refer to (interval midpoints for
+    # mip; return_z only)
     z_vals: Optional[torch.Tensor] = None  # [R, S]
 
 
@@ -29,22 +30,25 @@ def volume_render(radiance_field, z_vals, ray_directions, *,
                   radiance_field_noise_std: float = 0.0,
                   noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
-                  white_background: bool = False,
+                  white_background: bool = False, mip: bool = False,
                   return_z: bool = False) -> RenderOutputs:
     """Composite [R, S, 4] (rgb logits, density logit) into per-ray maps.
 
-    The last interval is 1e10, distances scale by |d|, weights use
-    exp-transmittance with the +1e-10 floor. Rays with a zero z span
-    (occupancy's miss rays) composite to exact background.
+    z_vals: [R, S] sample depths, or with mip [R, S+1] interval edges.
+    Without mip the last interval is 1e10; with mip every interval is
+    real and the depths are the interval midpoints. Distances scale by
+    |d|, weights use exp-transmittance with the +1e-10 floor. Rays with
+    a zero z span (occupancy's miss rays) composite to exact background.
 
     Train-time density noise: with radiance_field_noise_std > 0, the
     density logit gets std * noise, where `noise` [R, S] is the caller's
     standard-normal draw or is drawn from `generator`; with neither, no
-    noise is added (an eval render). (The mip form is not ported yet.)
+    noise is added (an eval render).
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]
-    dists = torch.cat([dists, torch.full_like(z_vals[..., :1], 1e10)],
-                      dim=-1)
+    if not mip:
+        dists = torch.cat([dists, torch.full_like(z_vals[..., :1], 1e10)],
+                          dim=-1)
     dists = dists * torch.linalg.norm(ray_directions, dim=-1, keepdim=True)
 
     rgb = torch.sigmoid(radiance_field[..., :3])
@@ -64,14 +68,17 @@ def volume_render(radiance_field, z_vals, ray_directions, *,
     weights = alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
-    depth_map = torch.sum(weights * z_vals, dim=-1)
+    depth_vals = z_vals
+    if mip:
+        depth_vals = 0.5 * (z_vals[..., :-1] + z_vals[..., 1:])
+    depth_map = torch.sum(weights * depth_vals, dim=-1)
     acc_map = torch.sum(weights, dim=-1)
     disp_map = 1.0 / torch.clamp(depth_map / acc_map, min=1e-10)
 
     if white_background:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return RenderOutputs(rgb_map, disp_map, acc_map, weights, depth_map,
-                         z_vals if return_z else None)
+                         depth_vals if return_z else None)
 
 
 def img2mse(pred, target):

@@ -124,11 +124,16 @@ def merge_sorted(a, b):
 
 def hierarchical_z_vals(z_vals, weights, num_fine: int, det: bool,
                         u: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        mip: bool = False):
     """Fine depths: inverse-CDF resample from midpoint bins (edge weights
     dropped), merged with the coarse depths in sorted order. Without
-    det, `u` must be sorted (drawn by sorted_uniform when not given)."""
+    det, `u` must be sorted (drawn by sorted_uniform when not given).
+    mip: z_vals are interval edges and weights are per interval, so the
+    bins are the midpoints of the interval midpoints."""
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    if mip:
+        z_mid = 0.5 * (z_mid[..., 1:] + z_mid[..., :-1])
     if det:
         z_samples = sample_pdf(z_mid, weights[..., 1:-1], num_fine,
                                det=True)

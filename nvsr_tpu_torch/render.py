@@ -12,10 +12,13 @@ blocks of `ray_block` rays.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from nvsr_tpu_torch.models.nerf_mlp import apply_nerf_mlp
+from nvsr_tpu_torch.ops import encoding as enc
 from nvsr_tpu_torch.ops.geometry import get_rays_at, ndc_rays
 from nvsr_tpu_torch.ops.occupancy import tighten_near_far
 from nvsr_tpu_torch.ops.rendering import RenderOutputs, volume_render
@@ -34,18 +37,12 @@ class RenderConfig:
     radiance_field_noise_std: float = 0.0
     use_viewdirs: bool = True
     # mip-NeRF conical frustums (the baseline model's encode_position_fn
-    # 'mip'); not ported yet
+    # 'mip'): z holds interval edges and the point fns cast frustums
     mip: bool = False
     stop_coarse_grad: bool = False
     ray_block: int = 4096          # rays per render block
     # keep per-sample z in RenderOutputs.z_vals
     keep_z: bool = False
-
-    def __post_init__(self):
-        if self.mip:
-            raise NotImplementedError(
-                "mip rendering (RenderConfig.mip) is not ported yet: "
-                "ROADMAP Queue 1 #5, the baseline")
 
     @classmethod
     def from_cfg(cls, mode_cfg, nerf_cfg, **overrides) -> "RenderConfig":
@@ -155,14 +152,17 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
     when rcfg.perturb is set, and the density noise when
     rcfg.radiance_field_noise_std is; an eval render draws nothing.
     rcfg.stop_coarse_grad detaches the coarse radiance field (and so the
-    resampling weights) from the graph."""
-    z_vals = stratified_z_vals(rays.near, rays.far, rcfg.num_coarse,
+    resampling weights) from the graph. With rcfg.mip, each pass samples
+    one more edge than it has intervals and its point fn gets pts=None
+    (it casts the frustums between the z edges itself)."""
+    z_vals = stratified_z_vals(rays.near, rays.far,
+                               rcfg.num_coarse + int(rcfg.mip),
                                lindisp=rcfg.lindisp, perturb=rcfg.perturb,
                                generator=generator)
     aux: dict = {}
 
     def run_pass(point_fn, z):
-        if getattr(point_fn, "consumes_rays", False):
+        if rcfg.mip or getattr(point_fn, "consumes_rays", False):
             out = point_fn(None, rays, z)
         else:
             pts = (rays.origins[..., None, :]
@@ -179,7 +179,7 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
             rf, z, rays.directions,
             radiance_field_noise_std=rcfg.radiance_field_noise_std,
             generator=generator, white_background=rcfg.white_background,
-            return_z=rcfg.keep_z)
+            mip=rcfg.mip, return_z=rcfg.keep_z)
 
     rf_c = run_pass(point_fn_coarse, z_vals)
     if rcfg.stop_coarse_grad:
@@ -187,9 +187,10 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
     out_c = composite(rf_c, z_vals)
     out_f = None
     if rcfg.num_fine > 0 and point_fn_fine is not None:
-        z_fine = hierarchical_z_vals(z_vals, out_c.weights, rcfg.num_fine,
+        z_fine = hierarchical_z_vals(z_vals, out_c.weights,
+                                     rcfg.num_fine + int(rcfg.mip),
                                      det=not rcfg.perturb,
-                                     generator=generator)
+                                     generator=generator, mip=rcfg.mip)
         out_f = composite(run_pass(point_fn_fine, z_fine), z_fine)
     return RenderResult(out_c, out_f, aux)
 
@@ -341,6 +342,44 @@ def untile_ray_maps(flat, height: int, width: int, tile=8):
     th_, tw_ = _tile_hw(tile)
     x = flat.reshape(height // th_, width // tw_, th_, tw_, *flat.shape[1:])
     return x.transpose(1, 2).reshape(height, width, *flat.shape[1:])
+
+
+def make_baseline_point_fn(params, mlp_cfg, *, num_encoding_fn_xyz=6,
+                           num_encoding_fn_dir=4, include_input_xyz=True,
+                           include_input_dir=True, mip=False,
+                           ds_factor: int = 1,
+                           ipe_multires: int = 10) -> PointFn:
+    """PE / mip-IPE baseline point function (models/nerf_mlp.py).
+
+    mip: IPE over the conical-frustum Gaussians between the z edges, with
+    the reference's pixel radius ds_factor * 0.00135 * 2 / sqrt(12) (a
+    Python float, so no per-call copy to the device); otherwise the sin/
+    cos encoding of the points. With viewdirs, their sin/cos encoding is
+    appended."""
+    radii = ds_factor * 0.00135 * 2.0 / math.sqrt(12.0)
+
+    def point_fn(pts, rays, z_vals):
+        if mip:
+            means, covs = enc.cast_rays(z_vals, rays.origins,
+                                        rays.directions, radii)
+            embedded = enc.integrated_positional_encoding(
+                (means, covs), min_deg=0, max_deg=ipe_multires - 1)
+            r, s = embedded.shape[:2]
+            embedded = embedded.reshape(r * s, -1)
+        else:
+            r, s, _ = pts.shape
+            embedded = enc.positional_encoding(pts.reshape(-1, 3),
+                                               num_encoding_fn_xyz,
+                                               include_input_xyz)
+        if mlp_cfg.use_viewdirs:
+            dirs = rays.viewdirs[:, None, :].expand(r, s, 3)
+            emb_d = enc.positional_encoding(dirs.reshape(-1, 3),
+                                            num_encoding_fn_dir,
+                                            include_input_dir)
+            embedded = torch.cat([embedded, emb_d], dim=-1)
+        return apply_nerf_mlp(params, mlp_cfg, embedded).reshape(r, s, 4)
+
+    return point_fn
 
 
 def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,

@@ -8,10 +8,9 @@ enter as detached tensors, so the backward never reaches them. Which
 groups then step is the caller's choice, through `ModuleOptimizer`
 (decoders, SR) and `planes_store.PlanesBuffer.apply_grads` (planes).
 `ModuleOptimizer.state` reads and writes optax.adam's state layout, so
-the JAX package's checkpoints carry over both ways.
-
-Not ported yet: `train_step_baseline`, the baseline NeRF's step (ROADMAP
-Queue 1 #5).
+the JAX package's checkpoints carry over both ways. `train_step_baseline`
+is the same for the baseline NeRF (models/nerf_mlp.py), whose only
+trained groups are its two MLPs.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr
 from nvsr_tpu_torch.ops.resize import avg_downsample_pixels
 from nvsr_tpu_torch.planes_store import materialize_pos_planes
 from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
+                                   make_baseline_point_fn,
                                    make_triplane_point_fn, render_rays)
 from nvsr_tpu_torch.utils.io import EmptyState, ScaleByAdamState
 
@@ -211,25 +211,83 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     if out.aux and "overflow_frac" in out.aux:
         metrics["overflow_frac"] = out.aux["overflow_frac"]
     if flags.track_surface_aabb:
-        metrics.update(_surface_moments(out, rays, flags))
+        metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
     return metrics, grads
 
 
-def _surface_moments(out, rays: RayBundle, flags: StepFlags) -> dict:
+def _surface_moments(out, rays: RayBundle, flags: StepFlags,
+                     mip: bool = False) -> dict:
     """Weighted moments of the sample points whose compositing weight
-    exceeds surf_weight_eps. The last sample owns the 1e10 background
-    interval and is left out (on rays that hit nothing it takes the whole
-    residual transmittance)."""
+    exceeds surf_weight_eps. Without mip, the last sample owns the 1e10
+    background interval and is left out (on rays that hit nothing it
+    takes the whole residual transmittance); with mip every interval is
+    real and every sample counts."""
     o = out.fine if out.fine is not None else out.coarse
     w = o.weights.detach()
     z = o.z_vals.detach()
     pts = rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]
     wm = torch.where(w > flags.surf_weight_eps, w, torch.zeros_like(w))
-    last = torch.arange(w.shape[-1], device=w.device) < w.shape[-1] - 1
-    wm = (wm * last[None, :])[..., None]
+    if not mip:
+        last = torch.arange(w.shape[-1], device=w.device) < w.shape[-1] - 1
+        wm = wm * last[None, :]
+    wm = wm[..., None]
     return {"surf_w": torch.sum(wm) * torch.ones(3, device=w.device),
             "surf_wx": torch.sum(wm * pts, dim=(0, 1)),
             "surf_wx2": torch.sum(wm * pts * pts, dim=(0, 1))}
+
+
+def baseline_point_fn(params, mlp_cfg, enc_cfg: tuple):
+    """make_baseline_point_fn from an enc_cfg tuple (num_fn_xyz,
+    num_fn_dir, include_xyz, include_dir, mip, ds_factor,
+    ipe_multires)."""
+    n_xyz, n_dir, inc_xyz, inc_dir, mip, ds_factor, multires = enc_cfg
+    return make_baseline_point_fn(
+        params, mlp_cfg, num_encoding_fn_xyz=n_xyz,
+        num_encoding_fn_dir=n_dir, include_input_xyz=inc_xyz,
+        include_input_dir=inc_dir, mip=mip, ds_factor=ds_factor,
+        ipe_multires=multires)
+
+
+def train_step_baseline(decoder_coarse, decoder_fine, rays: RayBundle,
+                        target, generator: torch.Generator, *, mlp_cfg,
+                        rcfg: RenderConfig, flags: StepFlags,
+                        enc_cfg: tuple):
+    """Forward and backward of the baseline NeRF (PE or mip-IPE) for one
+    ray batch: the coarse MLP and, unless flags.share_coarse_fine, the
+    fine one are trained, with one torch.autograd.grad.
+
+    enc_cfg: (num_fn_xyz, num_fn_dir, include_xyz, include_dir, mip,
+    ds_factor, ipe_multires). On a consistency iteration the rendered
+    rgb is averaged over ds_factor^2 patches before the loss, and the
+    loss is weighted by im_inconsistency_loss_w. Returns (metrics, grads)
+    as train_step does, grads {"dc", "df"?}."""
+    dc = _inputs(decoder_coarse, True)
+    diff = {"dc": dc}
+    df = dc
+    if not flags.share_coarse_fine:
+        df = diff["df"] = _inputs(decoder_fine, True)
+    out = render_rays(baseline_point_fn(dc, mlp_cfg, enc_cfg),
+                      baseline_point_fn(df, mlp_cfg, enc_cfg), rays, rcfg,
+                      generator)
+    rgb_coarse = out.coarse.rgb
+    rgb_fine = out.fine.rgb if out.fine is not None else None
+    if flags.consistency_iter:
+        rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
+        if rgb_fine is not None:
+            rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
+    coarse_loss = img2mse(rgb_coarse, target[..., :3])
+    fine_loss = img2mse(rgb_fine, target[..., :3]) if rgb_fine is not None \
+        else torch.zeros((), device=target.device)
+    rendering_loss = coarse_loss + fine_loss
+    leaves = _leaves(diff)
+    gl = torch.autograd.grad(_loss_weight(flags) * rendering_loss, leaves,
+                             allow_unused=True)
+    grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
+                              for x, g in zip(leaves, gl)])
+    metrics = {"loss": rendering_loss, "coarse_loss": coarse_loss,
+               "fine_loss": fine_loss, "psnr": mse2psnr(rendering_loss),
+               "fine_psnr": mse2psnr(fine_loss)}
+    return {k: v.detach() for k, v in metrics.items()}, grads
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(mods) >= 19 and bad.strip() == "[]", out.stdout
     assert {"nvsr_tpu_torch.ops." + m for m in (
         "fused_render", "fused_decoder", "gather_dma")} <= set(mods), mods
+    assert {"nvsr_tpu_torch.convert", "nvsr_tpu_torch.ops.encoding",
+            "nvsr_tpu_torch.models.nerf_mlp"} <= set(mods), mods
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -165,10 +167,15 @@ def test_bridge_defaults_to_the_card():
     """The port's entry points run on the card unless the caller names
     another device."""
     import inspect
-    from nvsr_tpu_torch.models import plane_sr, triplane
+    from nvsr_tpu_torch import convert
+    from nvsr_tpu_torch.models import nerf_mlp, plane_sr, triplane
     for fn in (bridge.decoder_from_jax, bridge.plane_sr_from_jax,
                bridge.planes_from_jax, triplane.init_decoder_params,
-               plane_sr.init_plane_sr_params, plane_sr.init_edsr_params):
+               plane_sr.init_plane_sr_params, plane_sr.init_edsr_params,
+               plane_sr.init_srresnet_params, bridge.nerf_mlp_from_jax,
+               nerf_mlp.init_nerf_mlp_params,
+               convert.convert_triplane_decoder, convert.convert_nerf_mlp,
+               convert.convert_plane_sr, convert.convert_par_file):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     planes = {"pos": np.ones((3, 2, 4, 4)), "view": np.zeros((2, 3, 3))}
     out = bridge.planes_from_jax(planes, device="cpu")

@@ -100,3 +100,35 @@ def test_experiment_train_phase_rehearses_on_the_cpu():
     small = dict(rays=64, samples=4, channels=8, res=12, view_res=4,
                  sr_hidden=4, sr_blocks=1, sr_scale=2, image=32)
     assert cs.experiment_train_phase("cpu", w=small, on_card=False) is None
+
+
+def test_baseline_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's phase 10 (a) on the CPU at a tiny size: the
+    MipNeRF_baseline config as a dict through the Experiment (training
+    with consistency iterations, saves, the bit-equal resume), a crop of
+    the val view against the CPU render, and `--eval images` of the
+    logdir (metrics.txt and PNGs from the best checkpoint)."""
+    cs = _chip_smoke()
+    small = dict(image=32, layers=2, hidden=16, rays=64, samples=4, crop=8)
+    assert cs.baseline_phase("cpu", w=small, on_card=False) is None
+
+
+def test_convert_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's phase 10 (b) on the CPU at a tiny size: reference
+    checkpoints saved with torch.save, read and converted, then SR and the
+    frame on the converted weights through the fused route's plain
+    version against the plain point fns (>= 45 dB)."""
+    cs = _chip_smoke()
+    small = dict(image=16, channels=8, res=12, view_res=4, sr_hidden=4,
+                 sr_blocks=1, sr_scale=2)
+    assert cs.convert_phase("cpu", w=small, on_card=False) is None
+
+
+def test_sr_gaps_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's phase 10 (c) on the CPU at a tiny size: SRResNet
+    with and without BatchNorm in eval and train mode, and tiled EDSR
+    against the full plane in f32 (within the bound) and bf16."""
+    cs = _chip_smoke()
+    small = dict(channels=4, res=12, sr_hidden=8, sr_blocks=2, sr_scale=2,
+                 srresnet_hidden=8, srresnet_blocks=2, tile=5, reps=1)
+    assert cs.sr_gaps_phase("cpu", w=small, on_card=False) is None

@@ -331,9 +331,13 @@ def _case_render_config_from_cfg(rng):
         jc.nerf[m], jc.nerf, stop_coarse_grad=m == "train"))
         for m in ("train", "validation")]
     assert got[1]["ray_block"] == 8192
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        trender.RenderConfig.from_cfg(tc.nerf["validation"],
-                                      {"encode_position_fn": "mip"})
+    # the baseline's mip form (configs/MipNeRF_baseline.yml)
+    mip = {"encode_position_fn": "mip"}
+    got.append(dataclasses.asdict(trender.RenderConfig.from_cfg(
+        tc.nerf["validation"], mip)))
+    ref.append(dataclasses.asdict(jrender.RenderConfig.from_cfg(
+        jc.nerf["validation"], mip)))
+    assert got[2]["mip"] is True
     return got, ref
 
 
