@@ -122,10 +122,43 @@ Phases (any failure raises and the script exits non-zero):
      shape, and EDSR 256x32 x4 with tile_size 100 against the full plane
      in f32 (TF32 off; within 1e-3 of the trunk output's largest) and
      bf16 (>= 45 dB), each timed.
+ 11. data parallel through the entry point, as a user launches it:
+     `python -m torch.distributed.run --standalone --nproc_per_node=N
+     chip_smoke.py --cli REPORT --config <yml> ...` runs
+     nvsr_tpu_torch.cli's main in each rank with probes (cli_rank:
+     iterations timed between synchronizes, collectives, flushed losses,
+     eval renders, plane files and pickles written, launches, peak
+     memory). Phase 9's TrainModels config (as YAML, full width,
+     `experiment.data_parallel: true`, the trainable route, an evaluate
+     at the first and the last of 16 iterations, one save) on phase 9's
+     scene, trained (a) without torchrun and as a world of 1 under NCCL,
+     each alone on the card, (b) as a world of 2 under gloo with both
+     ranks on cuda:0 beside a second plain run (the run-to-run control)
+     and the port's dry run (`python -m nvsr_tpu_torch.parallel.dryrun 2
+     --device cuda:0 --dist-backend gloo`: one sharded step and eval
+     render against the world of 1, gated by its own checks); then
+     `--eval images` of the plain run's logdir by each, and of the world
+     of 2's own logdir. Checks: the world of 1's first iteration (no
+     update before it), its eval renders and PNGs bit-equal to the plain
+     run's; every loss and PSNR of either world within JAX's bounds
+     (rtol 2e-5 / 2e-4), the world of 2's eval renders, of the plain
+     logdir and of its own, within rtol 1e-4 / atol 2e-5 of the plain
+     eval; after an update two runs of one command differ by the order
+     of the backward's atomics (plane_sample_bwd, index_add_, cuDNN), so
+     the world of 1's parameters are held within DP_PARAM_BOUND of each
+     leaf's largest (fixed from several runs' readings), with every
+     run's deltas printed; each plane file written by its crc32 owner only,
+     checkpoints and exp_info by rank 0 only; the sampler launched once
+     per iteration and the full entry twice per eval block of each
+     rank's. Prints both per-iteration medians (the distributed path's
+     cost), the collectives per iteration and each rank's peak memory.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
 The last two lines are the kernels JSON and the result JSON.
+
+python3 chip_smoke.py --cli REPORT <cli arguments> is phase 11's process
+of one rank (see cli_rank).
 
 python3 chip_smoke.py --times [ROOT ...] checks nothing: it times the
 decoder's kernels, the plane sampler's kernels beside F.grid_sample, the
@@ -139,6 +172,7 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2919,6 +2953,522 @@ def sr_gaps_phase(dev, w=SR_GAPS_FULL, on_card=True, card=""):
           f"{on}")
 
 
+# phase 11: data parallel through the entry point, as a user launches it:
+# `python -m torch.distributed.run --standalone --nproc_per_node=N
+# chip_smoke.py --cli REPORT <cli arguments>` runs nvsr_tpu_torch.cli's
+# main in every rank with the probes of cli_rank
+DIST_ITERS = 16
+# JAX's bounds of a data-parallel run against the unsharded one
+# (tests/test_experiment_mesh.py:52-54)
+DP_LOSS_RTOL, DP_LOSS_ATOL, DP_PSNR_RTOL = 2e-5, 1e-7, 2e-4
+DP_IMG_RTOL, DP_IMG_ATOL = 1e-4, 2e-5
+# the world of 1's parameters after DIST_ITERS steps against the plain
+# run's: max |delta| / leaf max by group (decoders, SR net, planes). On
+# the card two runs of one command differ after their first update: the
+# backward's atomics (plane_sample_bwd, the plain gathers' index_add_,
+# cuDNN's) sum in another order each run. Each bound lies above every
+# reading of a second plain run and of the world of 1 in PERF.md's
+# record, and below the world of 2's: its gradients round in another
+# order at every step (the dry run's first step: 2e-7 to 5e-7 by group),
+# which the bf16 SR convolutions grow (tests/test_torch_experiment_dp.py).
+# The SR net's readings do not separate the two, so its bound only sits
+# above both
+DP_PARAM_BOUND = {"planes": 3e-3, "decoders": 1.5e-4, "SR": 1e-5}
+
+
+def cli_rank(report, argv):
+    """One process of phase 11: nvsr_tpu_torch.cli.main(argv) with probes:
+    each train_iteration between two synchronizes, with the collectives it
+    made; the flushed train/loss and train/psnr; each eval render's rgb
+    (eval mode) and the kernel launches this rank's share of its blocks
+    needs; the plane files and pickles this rank wrote; launch counts and
+    peak device memory. Pickled to REPORT.<rank>.pkl."""
+    import pickle
+    import torch
+    sys.path.insert(0, ROOT)
+    from nvsr_tpu_torch import cli, experiment, kernels
+    from nvsr_tpu_torch.parallel import sharding
+    from nvsr_tpu_torch.planes_store import PlaneStore
+    from nvsr_tpu_torch.utils.logging import ExperimentLogger
+
+    rank = int(os.environ.get("RANK", 0))
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    on_card = torch.cuda.is_available()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rec = {"iters": [], "scalars": [], "renders": [], "planes_written": [],
+           "pickles": [], "want_full": 0}
+    exp_cls = experiment.Experiment
+    real_iter, real_render = exp_cls.train_iteration, \
+        exp_cls.render_eval_image
+    real_scalar, real_save = ExperimentLogger.write_scalar, PlaneStore.save
+    real_pickle = experiment.save_pickle
+
+    def train_iteration(self, i):
+        before = dict(sharding.COLLECTIVES)
+        sync()
+        t = time.perf_counter()
+        out = real_iter(self, i)
+        sync()
+        rec["iters"].append({
+            "sr": self._pending_metrics[-1][2],
+            "ms": (time.perf_counter() - t) * 1e3,
+            "collectives": {k: v - before.get(k, 0)
+                            for k, v in sharding.COLLECTIVES.items()}})
+        return out
+
+    def render_eval_image(self, scene_id, img_idx, skip_sr=False):
+        out, img = real_render(self, scene_id, img_idx, skip_sr)
+        fine = out.fine if out.fine is not None else out.coarse
+        if self.eval_tile_cfg(scene_id) is not None:
+            # two passes through the full entry per block of this rank's
+            # (block 0 for a rank without one of its own)
+            th, tw = self.eval_tile_shape()
+            h, w = fine.rgb.shape[:2]
+            rays = -(-h // th) * th * -(-w // tw) * tw
+            block = self._mode_render_cfg("validation", scene_id).ray_block
+            blocks = -(-rays // block)
+            mine = len(range(rank, blocks, world)) if self.mesh else blocks
+            rec["want_full"] += 2 * max(mine, 1)
+        if self.eval_mode:
+            rec["renders"].append(((scene_id, img_idx, skip_sr),
+                                   fine.rgb.cpu().numpy()))
+        return out, img
+
+    def write_scalar(self, name, value, index):
+        if name in ("train/loss", "train/psnr"):
+            rec["scalars"].append((name, index, float(value)))
+        return real_scalar(self, name, value, index)
+
+    def save(self, scene, *a, **kw):
+        rec["planes_written"].append(scene)
+        return real_save(self, scene, *a, **kw)
+
+    def save_pickle(name, *a, **kw):
+        rec["pickles"].append(os.path.basename(name))
+        return real_pickle(name, *a, **kw)
+
+    exp_cls.train_iteration = train_iteration
+    exp_cls.render_eval_image = render_eval_image
+    ExperimentLogger.write_scalar = write_scalar
+    PlaneStore.save = save
+    experiment.save_pickle = save_pickle
+    for k in kernels.KERNELS:
+        k.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    sync()
+    rec.update(seconds=time.perf_counter() - t0, rank=rank, world=world,
+               launches={k.symbol: k.launches for k in kernels.KERNELS},
+               collectives=dict(sharding.COLLECTIVES),
+               peak_mib=(torch.cuda.max_memory_allocated() / 2 ** 20
+                         if on_card else None))
+    with open(f"{report}.{rank}.pkl", "wb") as f:
+        pickle.dump(rec, f)
+
+
+def dist_cfg(w, scene, logdir):
+    """Phase 9's TrainModels config (as a dict) with
+    experiment.data_parallel, cut to this phase: an evaluate at the first
+    and the last iteration, of the val views only; one save, at the last
+    iteration (save_every is 600 minutes); every iteration's metrics
+    flushed; occupancy boxes from
+    iteration 2 on, every 2 iterations; the trainable route."""
+    cfg = trainmodels_cfg(w, scene)
+    cfg.experiment.update(logdir=logdir, validate_every=1000,
+                          save_every=600.0, print_every=1,
+                          data_parallel=True)
+    cfg.dataset["dir"]["val"] = {}
+    cfg.nerf.train["occupancy"] = {"enabled": True, "warmup_iters": 2,
+                                   "update_every": 2}
+    cfg.nerf.train["tiled_gather"] = True
+    cfg.nerf.train["num_random_rays"] = w["rays"]
+    cfg.nerf.train["num_coarse"] = cfg.nerf.train["num_fine"] = w["samples"]
+    cfg.nerf.validation["eval_train_scenes"] = False
+    cfg.nerf.validation["tiled_gather"] = True
+    return cfg
+
+
+def dist_phase(dev, w=TRAIN_FULL, on_card=True, card="", iters=DIST_ITERS,
+               controls=False):
+    """Phase 11 (see the module docstring). With on_card=False (a CPU
+    rehearsal at a small `w`) every rank runs on the CPU under gloo, the
+    world of 1 too, and every comparison of (a) is bit for bit; the dry
+    run is left to tests/test_torch_parallel.py there. controls=True
+    also trains a second plain run and a second world of 1 alone and a
+    second world of 2, and prints every reading against the plain run
+    and each run's against its twin: the record behind DP_PARAM_BOUND."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from nvsr_tpu_torch.parallel.host_pool import scene_owner
+    from nvsr_tpu_torch.planes_store import PlaneStore
+    from nvsr_tpu_torch.utils.io import load_pickle
+    from nvsr_tpu_torch.utils.png import imread as png_read
+
+    t_phase = time.perf_counter()
+    on = f" on {card}" if card else ""
+    scene = "chair"
+    lr_scene = f"{scene}_DS{2 * w['sr_scale']}_PlRes{w['res']}_" \
+        f"{w['view_res']}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]),
+        GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    if not on_card:
+        env["OMP_NUM_THREADS"] = "1"
+    device = [] if on_card else ["--device", "cpu"]
+    started = []
+
+    def stop_all():
+        """Stop every run still going, torchrun's workers with it."""
+        for proc in started:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_scene(os.path.join(root, "synt"), scene, w["image"])
+
+        def start(report, cmd):
+            # a session of its own: stopping it stops torchrun's workers
+            with open(report + ".log", "w") as log:
+                proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT,
+                                        start_new_session=True)
+            started.append(proc)
+            return proc
+
+        def launch(name, cfg_of, world=None, extra=()):
+            path = os.path.join(root, f"{cfg_of}.yml")
+            if not os.path.exists(path):
+                with open(path, "w") as f:
+                    f.write(dist_cfg(w, scene, f"logs/{cfg_of}").dump())
+            report = os.path.join(root, f"report_{name}")
+            cmd = [sys.executable]
+            if world:
+                cmd += ["-m", "torch.distributed.run", "--standalone",
+                        f"--nproc_per_node={world}"]
+            cmd += [os.path.join(ROOT, "chip_smoke.py"), "--cli", report,
+                    "--config", path, "--max-iters", str(iters), *device,
+                    *extra]
+            return name, start(report, cmd), report, world or 1
+
+        def launch_dryrun():
+            """The port's dry run on the card: two gloo ranks on cuda:0
+            against the world of 1 and a second world of 1."""
+            report = os.path.join(root, "report_dryrun")
+            return "dryrun", start(report, [
+                sys.executable, "-m", "nvsr_tpu_torch.parallel.dryrun", "2",
+                "--device", "cuda:0", "--dist-backend", "gloo"]), report, 0
+
+        def wait(*runs, timeout=600):
+            """Each run's rank reports (the dry run's: its output)."""
+            deadline = time.monotonic() + timeout
+            rcs = {}
+            for name, proc, _, _ in runs:
+                try:
+                    rcs[name] = proc.wait(
+                        timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    rcs[name] = "timeout"
+            stop_all()
+            out = {}
+            for name, proc, report, world in runs:
+                if rcs[name] != 0:
+                    with open(report + ".log") as f:
+                        print(f.read()[-6000:])
+                    fail(f"phase 11 run {name} ended with {rcs[name]}")
+                if not world:
+                    with open(report + ".log") as f:
+                        out[name] = f.read()
+                    continue
+                ranks = []
+                for r in range(world):
+                    with open(f"{report}.{r}.pkl", "rb") as f:
+                        ranks.append(pickle.load(f))
+                out[name] = ranks
+            return out
+
+        try:
+            gloo2 = ["--dist-backend", "gloo"] + (["--device", "cuda:0"]
+                                                  if on_card else [])
+            # training: on the card, the plain run and the world of 1 alone,
+            # one after the other (their iterations are timed), then a second
+            # plain run (the run-to-run control) beside the world of 2 (a
+            # correctness run: two ranks share the card) and the dry run;
+            # on the CPU, where nothing is timed and the arithmetic repeats
+            # itself, the three runs at once and no control
+            if on_card:
+                runs = wait(launch("plain", "plain"))
+                runs.update(wait(launch("w1", "w1", world=1)))
+                if controls:
+                    runs.update(wait(launch("plain_b", "plain_b")))
+                    runs.update(wait(launch("w1_b", "w1_b", world=1)))
+                runs.update(wait(
+                    launch("again", "again"),
+                    launch("w2", "w2", world=2, extra=gloo2),
+                    launch_dryrun(),
+                    *([launch("w2_b", "w2_b", world=2, extra=gloo2)]
+                      if controls else [])))
+            else:
+                runs = wait(launch("plain", "plain"),
+                            launch("w1", "w1", world=1),
+                            launch("w2", "w2", world=2, extra=gloo2))
+            dry_log = runs.pop("dryrun", None)
+            trained = [n for n in ("plain", "plain_b", "again", "w1", "w1_b",
+                                   "w2", "w2_b") if n in runs]
+            # eval: each of them --eval images of the plain run's logdir,
+            # and the world of 2 of its own logdir: its trained state
+            ev = ["--eval", "images", "--results_path"]
+            runs.update(wait(
+                launch("eval_plain", "plain", extra=ev + ["results_plain"]),
+                launch("eval_w1", "plain", world=1, extra=ev + ["results_w1"]),
+                launch("eval_w2", "plain", world=2,
+                       extra=ev + ["results_w2"] + gloo2),
+                launch("own_w2", "w2", world=2,
+                       extra=ev + ["results_ow2"] + gloo2)))
+
+            if dry_log is not None:
+                lines = [ln for ln in dry_log.splitlines()
+                         if ln.startswith("dryrun_multichip")]
+                print(f"[dist] {lines[-1] if lines else dry_log[-2000:]}"
+                      f"{on}")
+
+            def scalars(name, key):
+                return np.array([v for n, _, v in runs[name][0]["scalars"]
+                                 if n == key])
+
+            # check 1: the flushed losses and PSNRs
+            loss = {n: scalars(n, "train/loss") for n in trained}
+            psnr = {n: scalars(n, "train/psnr") for n in loss}
+            for n in loss:
+                print(f"[dist] {n} losses {loss[n].tolist()}")
+            if any(len(v) != iters or not np.all(np.isfinite(v))
+                   for v in loss.values()):
+                fail("phase 11: missing or non-finite losses")
+
+            def rel(a, b):
+                return float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                               1e-30)))
+
+            print(f"[dist] loss max rel delta vs plain: "
+                  f"{ {n: rel(loss[n], loss['plain']) for n in trained} }; "
+                  f"first iteration "
+                  f"(no update before it) world 1 "
+                  + ("bit-equal" if loss["w1"][0] == loss["plain"][0]
+                     else "DIFFERS"))
+            exact_w1 = on_card is False
+            if exact_w1:
+                if not (np.array_equal(loss["w1"], loss["plain"])
+                        and np.array_equal(psnr["w1"], psnr["plain"])):
+                    fail("phase 11 (a): world 1 losses are not the plain "
+                         "run's")
+            elif not (loss["w1"][0] == loss["plain"][0]
+                      and psnr["w1"][0] == psnr["plain"][0]):
+                fail("phase 11 (a): the first iteration differs at world 1")
+            for n in [n for n in trained if n.startswith("w")]:
+                if not (np.allclose(loss[n], loss["plain"], rtol=DP_LOSS_RTOL,
+                                    atol=DP_LOSS_ATOL)
+                        and np.allclose(psnr[n], psnr["plain"],
+                                        rtol=DP_PSNR_RTOL)):
+                    fail(f"phase 11: {n} losses or PSNRs outside JAX's bounds")
+
+            # check 2: the logdirs: module checkpoints and plane files (with
+            # their Adam leaves) against the plain run's. Adam's moments of
+            # the SR net hold gradients near 0 (down to 1e-26 at a small
+            # width), whose relative deltas say nothing, so they are held
+            # only bit for bit where the arithmetic is (a CPU world of 1)
+            def logdir_state(n):
+                d = os.path.join(root, "logs", n)
+                params, adam = {}, {}
+                for f in sorted(os.listdir(d)):
+                    if ".ckpt" in f:
+                        c = load_pickle(os.path.join(d, f),
+                                        suffix=f.split(".")[-1])
+                        for k in ("model_coarse_state_dict",
+                                  "model_fine_state_dict", "SR_model"):
+                            if k in c:
+                                params[f + ":" + k] = c[k]
+                        for k in ("optimizer", "SR_optimizer"):
+                            if k in c:
+                                adam[f + ":" + k] = c[k]
+                planes, opt = PlaneStore([os.path.join(d, "planes")]).load(
+                    lr_scene, with_opt_state=True)
+                params["planes"] = [planes.planes_pos, planes.plane_view]
+                adam["planes"] = opt.leaves()
+                return params, adam
+
+            states = {n: logdir_state(n) for n in trained}
+            base, base_adam = states["plain"]
+
+            def param_delta(n, ref="plain"):
+                other, adam = states[n]
+                mine, mine_adam = states[ref]
+                if sorted(other) != sorted(base) or sorted(adam) != sorted(
+                        base_adam):
+                    fail(f"phase 11: {n}'s logdir {sorted(other)}, the plain "
+                         f"run's {sorted(base)}")
+                worst = {}
+                for k in mine:
+                    group = ("planes" if k == "planes" else "SR"
+                             if "SR_model" in k else "decoders")
+                    for a, b in zip(flat_leaves(other[k]),
+                                    flat_leaves(mine[k])):
+                        a, b = a.double(), b.double()
+                        scale = max(float(b.abs().max()), 1e-30)
+                        worst[group] = max(worst.get(group, 0.0), float(
+                            (a - b).abs().max()) / scale)
+                return worst, trees_equal(other, mine) and trees_equal(
+                    adam, mine_adam)
+
+            deltas = {n: param_delta(n) for n in trained if n != "plain"}
+            print(f"[dist] logdir checkpoints and plane files {sorted(base)}: "
+                  f"parameters vs plain, max delta / leaf max by group, and "
+                  f"whether every parameter and Adam leaf is bit-equal: "
+                  f"{deltas}")
+            for n, twin in (("w1_b", "w1"), ("w2_b", "w2")):
+                if n in states:
+                    print(f"[dist] {n} vs {twin} (one command twice): "
+                          f"{param_delta(n, twin)}")
+            if exact_w1 and not deltas["w1"][1]:
+                fail("phase 11 (a): world 1's logdir is not the plain run's")
+            if on_card:
+                print(f"[dist] world 1's parameters held within "
+                      f"{DP_PARAM_BOUND}")
+                for n in ("w1", "w1_b"):
+                    if n in deltas and any(v > DP_PARAM_BOUND[g] for g, v
+                                           in deltas[n][0].items()):
+                        fail(f"phase 11 (a): {n}'s parameters outside "
+                             f"{DP_PARAM_BOUND}")
+
+            # check 3: the eval of one logdir: world 1 bit-equal to the plain
+            # eval (rgb and PNG files), world 2 inside JAX's image bounds; and
+            # world 2's eval of its own logdir inside JAX's image bounds of
+            # the plain run's
+            def pngs(n):
+                d = os.path.join(root, f"results_{n}")
+                return {os.path.relpath(os.path.join(p, f), d):
+                        png_read(os.path.join(p, f))
+                        for p, _, fs in os.walk(d) for f in fs
+                        if f.endswith(".png")}
+
+            ref_png = pngs("plain")
+            ref = dict(runs["eval_plain"][0]["renders"])
+            for n in ("w1", "w2", "ow2"):
+                name = "own_w2" if n == "ow2" else f"eval_{n}"
+                got = dict(runs[name][0]["renders"])
+                if sorted(got) != sorted(ref) or not ref:
+                    fail(f"phase 11: {name} rendered {sorted(got)}")
+                worst = max(float(np.max(np.abs(got[k] - ref[k])))
+                            for k in ref)
+                inside = all(np.allclose(got[k], ref[k], rtol=DP_IMG_RTOL,
+                                         atol=DP_IMG_ATOL) for k in ref)
+                if n == "ow2":
+                    print(f"[dist] --eval images of w2's own logdir against "
+                          f"the plain run's: max |rgb delta| {worst:.3e}, "
+                          f"inside JAX's image bounds: {inside}")
+                    if not inside:
+                        fail("phase 11 (b): world 2's trained state renders "
+                             "outside JAX's image bounds")
+                    continue
+                same = all(np.array_equal(got[k], ref[k]) for k in ref)
+                mine_png = pngs(n)
+                png_diff = sorted(set(mine_png) ^ set(ref_png)) + [
+                    k for k in ref_png if k in mine_png
+                    and not np.array_equal(mine_png[k], ref_png[k])]
+                png_same = not png_diff
+                print(f"[dist] --eval images world {n[1]}: {len(ref)} "
+                      f"renders, "
+                      f"max |rgb - plain| {worst:.3e} (bit-equal: {same}); "
+                      f"{len(ref_png)} PNGs equal: {png_same}"
+                      + (f" (differ: {png_diff})" if png_diff else ""))
+                if n == "w1" and not (same and png_same):
+                    fail("phase 11 (a): world 1's eval is not the plain eval")
+                if not inside:
+                    fail(f"phase 11: eval_{n} outside JAX's image bounds")
+
+            # check 4: ownership: each plane file written by its crc32 owner
+            # only; checkpoints, exp_info and images by rank 0 only
+            for n in [n for n in runs if "w2" in n]:
+                for r, rep in enumerate(runs[n]):
+                    bad = [s for s in rep["planes_written"]
+                           if scene_owner(s, 2) != r]
+                    if bad or (r and rep["pickles"]):
+                        fail(f"phase 11: rank {r} of {n} wrote planes {bad}, "
+                             f"pickles {rep['pickles']}")
+            owner = scene_owner(lr_scene, 2)
+            w2 = runs["w2"]
+            print(f"[dist] world 2: {lr_scene} owned by rank {owner}; planes "
+                  f"written by rank: {[rep['planes_written'] for rep in w2]}; "
+                  f"pickles by rank: "
+                  f"{[sorted(set(rep['pickles'])) for rep in w2]}")
+            if not w2[owner]["planes_written"] or not w2[0]["pickles"]:
+                fail("phase 11: the owner or rank 0 wrote nothing")
+
+            # check 5: launches, per rank: the trainable sampler once per
+            # iteration, the full gather+decode entry twice per eval block of
+            # the rank's, nothing else
+            for n, reps in runs.items():
+                for rep in reps:
+                    want = {k: 0 for k in rep["launches"]}
+                    if "eval" not in n and "own" not in n:
+                        want["plane_sample_fwd"] = want["plane_sample_bwd"] = \
+                            len(rep["iters"])
+                    want["triplane_render_full"] = rep["want_full"]
+                    got = {k: v for k, v in rep["launches"].items() if v}
+                    print(f"[dist] {n} rank {rep['rank']}/{rep['world']}: "
+                          f"launches {got}")
+                    if on_card and rep["launches"] != want:
+                        fail(f"phase 11: {n} rank {rep['rank']} launched "
+                             f"{rep['launches']}, expected {want}")
+
+            # the numbers: collectives, iteration times, memory
+            for n in ("w1", "w2"):
+                rep = runs[n][0]
+                per = [it["collectives"] for it in rep["iters"]]
+                ctl = rep["collectives"].get("control", 0)
+                print(f"[dist] {n}: collectives per iteration (inside "
+                      f"train_iteration) {per[-1]}; all over the run "
+                      f"{rep['collectives']} in {len(per)} iterations "
+                      f"(control "
+                      f"broadcasts {ctl / len(per):.2f} an iteration)")
+            seconds = {n: round(r[0]["seconds"], 2) for n, r in runs.items()}
+            print(f"[dist] seconds in cli.main by run (rank 0){on}: "
+                  f"{seconds}")
+            if on_card:
+                def med(xs):
+                    return statistics.median(xs) if xs else float("nan")
+                for n in ("plain", "w1", "w2"):
+                    its = runs[n][0]["iters"]
+                    hr = [it["ms"] for it in its if it["sr"]]
+                    lr = [it["ms"] for it in its if not it["sr"]]
+                    print(f"[dist]{on}: {n} iteration ms (between two "
+                          f"synchronizes): HR/SR median {med(hr):.2f} of "
+                          f"{[round(x, 2) for x in hr]}; LR median "
+                          f"{med(lr):.2f} of {[round(x, 2) for x in lr]}; run "
+                          f"{runs[n][0]['seconds']:.2f} s"
+                          + (" (rank 0; two ranks share the card: a "
+                             "correctness run, not a scaling number)"
+                             if n == "w2" else ""))
+                for n in ("plain", "w1", "w2"):
+                    print(f"[dist]{on}: {n} peak memory by rank "
+                          f"{[round(rep['peak_mib'], 1) for rep in runs[n]]} "
+                          f"MiB" + (" (two ranks share the card: a "
+                                    "correctness run, not a scaling "
+                                    "number)" if n == "w2" else ""))
+        finally:
+            stop_all()
+        print(f"[dist] phase in {time.perf_counter() - t_phase:.1f} s{on}")
+
+
 def flagship(dev):
     """bench.py's eval frame at TrainModels widths, weights random from
     seed 0 -> (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view,
@@ -3230,6 +3780,10 @@ def main(profile=False):
     convert_phase(dev, card=card)
     sr_gaps_phase(dev, card=card)
 
+    # -- 11. data parallel through the entry point ----------------------
+    torch.cuda.empty_cache()
+    dist_phase(dev, card=card)
+
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (
         "triplane_render_sigma_only", "triplane_render_full",
@@ -3248,7 +3802,9 @@ if __name__ == "__main__":
     # frame through each of the points and from-rays entries; --times
     # [ROOT ...]: compare builds (see compare), no checks
     argv = sys.argv[1:]
-    if argv[:1] == ["--times-of"]:
+    if argv[:1] == ["--cli"]:
+        cli_rank(argv[1], argv[2:])
+    elif argv[:1] == ["--times-of"]:
         times_of(argv[1])
     elif argv[:1] == ["--times"]:
         compare(argv[1:])

@@ -3,7 +3,8 @@
     python -m nvsr_tpu_torch.cli --config <yml> [--load-checkpoint DIR|resume]
                                  [--max-iters N] [--profile-dir DIR]
                                  [--eval images|video --results_path DIR]
-                                 [--device cuda|cpu]
+                                 [--device cuda|cuda:N|cpu]
+                                 [--dist-backend nccl|gloo]
 
 trains (or, with --eval, evaluates) as `python -m nvsr_tpu.cli` does,
 with the machine-local `config/local_config.yml` root-path indirection
@@ -13,12 +14,26 @@ JAX package's layout, so either package resumes or evaluates what the
 other wrote. The device is the card unless `--device` names another.
 `--profile-dir` traces the run with torch.profiler into that directory
 (a Chrome trace), in place of the JAX package's jax.profiler trace.
+
+Under torchrun (RANK, WORLD_SIZE and LOCAL_RANK set) each process is one
+rank of a process group, for a config with `experiment.data_parallel`:
+
+    torchrun --standalone --nproc_per_node=N -m nvsr_tpu_torch.cli \
+        --config <yml> [--device cpu] [--dist-backend gloo]
+
+The backend is NCCL on cards and gloo on the CPU; a rank's device is
+cuda:LOCAL_RANK, unless --device names a card (e.g. `--device cuda:0
+--dist-backend gloo`: every rank on one card, which NCCL refuses). The
+process group is destroyed at exit. Without those variables nothing of
+this happens.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from nvsr_tpu_torch.experiment import Experiment
 from nvsr_tpu_torch.utils.config import get_config
@@ -49,12 +64,47 @@ def build_argparser():
                              "into this directory.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the models and renders "
-                             "(default: the card).")
+                             "(default: the card; under torchrun, the "
+                             "rank's card cuda:LOCAL_RANK unless an index "
+                             "is given).")
+    parser.add_argument("--dist-backend", type=str, default=None,
+                        choices=["nccl", "gloo"],
+                        help="torch.distributed backend under torchrun "
+                             "(default: nccl on cards, gloo on the CPU).")
     return parser
+
+
+def init_distributed(device: str, backend=None):
+    """Under torchrun: this rank's device, with the process group
+    initialized from the launcher's environment (env://); else None.
+    No silent fallback: NCCL with two ranks on one card fails as NCCL
+    does."""
+    if not {"RANK", "WORLD_SIZE", "LOCAL_RANK"} <= set(os.environ):
+        return None
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    dist.init_process_group(backend,
+                            device_id=dev if backend == "nccl" else None)
+    return dev
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    device = init_distributed(args.device, args.dist_backend)
+    try:
+        run(args, device or torch.device(args.device))
+    finally:
+        if device is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def run(args, device):
     eval_mode = args.eval
     assert args.config or args.load_checkpoint, (
         "Specify a configuration file and/or a checkpoint to resume.")
@@ -81,12 +131,11 @@ def main(argv=None):
 
     print(f"Using configuration file {config_file}")
     print(("Evaluating" if eval_mode else "Running")
-          + f" experiment {experiment_id} on {args.device}")
+          + f" experiment {experiment_id} on {device}")
     exp = Experiment(cfg, load_checkpoint=args.load_checkpoint,
                      eval_mode=eval_mode, results_path=args.results_path,
-                     root_path=root_path, device=args.device)
+                     root_path=root_path, device=device)
     if args.profile_dir:
-        import torch
         from torch.profiler import (ProfilerActivity, profile,
                                     tensorboard_trace_handler)
         activities = [ProfilerActivity.CPU]

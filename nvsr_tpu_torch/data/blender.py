@@ -6,7 +6,10 @@ the area/degradation pipeline, focal from camera_angle_x, and the
 40-pose spherical render path.
 
 The port's copy of nvsr_tpu/data/blender.py: PNGs are read by
-`utils/png.py` instead of imageio and PIL.
+`utils/png.py`, any other image file (e.g. a JPEG) by PIL, where JAX's
+reads every format through imageio (which reads JPEGs through PIL). The
+format is the file's, not its name's: a frame's path always ends in
+.png, and imageio and PIL read whatever the bytes hold.
 """
 
 from __future__ import annotations
@@ -20,10 +23,20 @@ from nvsr_tpu_torch.data.imresize import im_resize
 from nvsr_tpu_torch.utils import png
 
 
+def read_image(path: str) -> np.ndarray:
+    """The file's uint8 pixels: a PNG through utils/png.py, any other
+    format through PIL."""
+    if png.is_png(path):
+        return png.imread(path)
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
 def imread(path: str, with_alpha: bool = False) -> np.ndarray:
-    """Read a PNG; composite RGB over the alpha validity mask
+    """Read an image; composite RGB over the alpha validity mask
     (reference nerf_helpers.py:256-260)."""
-    image = png.imread(path)
+    image = read_image(path)
     if not with_alpha and image.ndim == 3 and image.shape[2] > 3:
         image = image[..., :3] * (image[..., 3:] > 0)
     return (image / 255.0).astype(np.float32)
@@ -32,8 +45,13 @@ def imread(path: str, with_alpha: bool = False) -> np.ndarray:
 def image_dims(path: str):
     """Header-only image size sniff (H, W) — replaces the reference's
     python-magic probe (load_blender.py:281) with a read of the PNG
-    header."""
-    return png.read_dims(path)
+    header, or PIL's lazy open for any other format."""
+    if png.is_png(path):
+        return png.read_dims(path)
+    from PIL import Image
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
 
 
 def translate_by_t_along_z(t):

@@ -7,8 +7,8 @@ bounds, builds the spiral render path, and optionally interpolates poses
 for smooth high-FPS video (min_eval_frames).
 
 The port's copy of nvsr_tpu/data/llff.py: PNGs are read and written by
-`utils/png.py`; other image files (LLFF's JPEGs) and the minifying
-resize import imageio and cv2 where they run.
+`utils/png.py`, other image files (LLFF's JPEGs) by PIL, and the
+minifying resize imports cv2 where it runs.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import os
 import numpy as np
 from scipy.interpolate import interp1d
 
+from nvsr_tpu_torch.data.blender import read_image
 from nvsr_tpu_torch.data.imresize import calc_resize_crop_margins, im_resize
 from nvsr_tpu_torch.utils import png
 
@@ -27,13 +28,6 @@ _IMG_EXTS = ("JPG", "jpg", "png", "jpeg", "PNG")
 def _image_files(d):
     return [os.path.join(d, f) for f in sorted(os.listdir(d))
             if f.endswith(_IMG_EXTS)]
-
-
-def _imread(path):
-    if path.lower().endswith(".png"):
-        return png.imread(path)
-    import imageio.v2 as imageio
-    return imageio.imread(path)
 
 
 def minify(basedir: str, factors=()):
@@ -46,7 +40,7 @@ def minify(basedir: str, factors=()):
         os.makedirs(imgdir)
         import cv2
         for path in _image_files(os.path.join(basedir, "images")):
-            img = _imread(path)
+            img = read_image(path)
             out = cv2.resize(img, dsize=(img.shape[1] // r, img.shape[0] // r),
                              interpolation=cv2.INTER_AREA)
             name = os.path.splitext(os.path.basename(path))[0] + ".png"
@@ -182,7 +176,7 @@ def _load_data(basedir, factor, base_factor=1, max_factor=1,
             f"Mismatch between imgs {len(imgfiles)} and poses "
             f"{poses.shape[-1]}")
 
-    sh = np.array(_imread(imgfiles[0]
+    sh = np.array(read_image(imgfiles[0]
                                  if imgfiles[0] else imgfiles[1]).shape)
     marg2crop = calc_resize_crop_margins(sh, max_factor // base_factor)
     if marg2crop is not None:
@@ -195,7 +189,7 @@ def _load_data(basedir, factor, base_factor=1, max_factor=1,
     if load_imgs:
         imgs = []
         for f in imgfiles:
-            im = _imread(f)[..., :3] / 255.0
+            im = read_image(f)[..., :3] / 255.0
             if marg2crop is not None:
                 im = im[marg2crop[0]:-marg2crop[0] if marg2crop[0] > 0
                         else None,

@@ -43,8 +43,20 @@ or kernel: its two MLPs train through `train.train_step_baseline` and its
 eval renders take the plain path, with the same checkpoint layout as
 JAX's baseline.
 
-Not ported yet, raising NotImplementedError: `experiment.data_parallel`,
-ROADMAP Queue 1 #6.
+Data parallel (`experiment.data_parallel: true | N`) runs one process
+per rank under torch.distributed (`cli.py` under torchrun), with JAX's
+contract: every rank draws the global batch from the shared host seed,
+renders and differentiates its contiguous rows of it (its device draws
+those of the global batch: ops.draws.RowShard), and one all_reduce
+averages the gradients and the loss terms (train.reduce_step), so every
+rank takes the same optimizer steps on the same replicated parameters.
+Eval renders share their ray blocks (render.render_rays_chunked). Each
+scene's plane file is read and written by its owner rank only
+(parallel.host_pool), rank 0 alone writes checkpoints, logs, images and
+experiment_info, and the host's decisions (evaluate, save, stop,
+preemption) are rank 0's, broadcast. Not ported yet, raising
+NotImplementedError: `experiment.model_parallel` > 1 and
+`nerf.train.store_planes.device_pool`, ROADMAP Queue 1 #2 (b) and (c).
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from collections import OrderedDict, defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nvsr_tpu_torch import bridge
 from nvsr_tpu_torch.data.dataset import MultiSceneDataset
@@ -70,11 +83,16 @@ from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
                                             make_density_fn, make_rot_mats,
                                             project_to_planes)
 from nvsr_tpu_torch.ops.fused_decoder import HALF
+from nvsr_tpu_torch.ops.draws import RowShard
 from nvsr_tpu_torch.ops.geometry import get_ray_bundle, normalize_coords
 from nvsr_tpu_torch.ops.occupancy import estimate_occupied_box
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr, ssim
 from nvsr_tpu_torch.ops.resize import image_inconsistency_loss
+from nvsr_tpu_torch.parallel.host_pool import HostPartition
+from nvsr_tpu_torch.parallel.sharding import (agree, broadcast_object,
+                                              data_sharding, make_mesh,
+                                              replicate, shard_rays)
 from nvsr_tpu_torch.planes_store import (PlaneStore, PlanesBuffer,
                                          create_scene_planes,
                                          decoder_tied_init_std,
@@ -88,14 +106,14 @@ from nvsr_tpu_torch.scenes import (Counter, ImageSampler, SceneCoupler,
 from nvsr_tpu_torch.train import (ModuleOptimizer, PlateauScheduler,
                                   StepFlags, baseline_point_fn,
                                   choose_patch_pixels, choose_random_pixels,
-                                  choose_tile_pixels, train_step,
-                                  train_step_baseline)
+                                  choose_tile_pixels, reduce_step,
+                                  train_step, train_step_baseline)
 from nvsr_tpu_torch.utils.config import (CfgNode,
                                          assert_compatible_model_config,
                                          get_config)
 from nvsr_tpu_torch.utils.coverage import PlaneCoverage
-from nvsr_tpu_torch.utils.io import (check_run_signature, load_pickle,
-                                     save_pickle)
+from nvsr_tpu_torch.utils.io import (PreemptedError, check_run_signature,
+                                     load_pickle, save_pickle)
 from nvsr_tpu_torch.utils.logging import ExperimentLogger, RunningScores
 
 RUNNING_MEAN_LOGS = ["psnr", "SR_psnr_gain", "planes_SR", "fine_loss",
@@ -133,7 +151,8 @@ class Experiment:
     """Builds the system for one config and trains it, or evaluates a
     trained logdir. `device` is where the models, planes, optimizer
     states and renders live: the card unless the caller names another
-    (the tests pass "cpu")."""
+    (the tests pass "cpu"); under a process group with
+    `experiment.data_parallel`, this rank's device."""
 
     def __init__(self, cfg: CfgNode, *, load_checkpoint: str = "",
                  eval_mode: str = None, results_path: str = None,
@@ -142,10 +161,9 @@ class Experiment:
         self.eval_mode = eval_mode
         self.root_path = root_path
         self.device = torch.device(device)
-        if cfg.experiment.get("data_parallel", False):
-            raise NotImplementedError(
-                "experiment.data_parallel is not ported yet: ROADMAP "
-                "Queue 1 #6, multi-GPU")
+        self.mesh = self._build_mesh()
+        # rank 0 alone writes the logdir's files, logs and images
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         experiment_id = cfg.experiment.get(
             "id", cfg.experiment["logdir"].split("/")[-1])
         self.experiment_id = experiment_id
@@ -168,7 +186,8 @@ class Experiment:
         if eval_mode:
             self.results_dir = os.path.join(root_path, results_path or ".",
                                             experiment_id)
-            os.makedirs(self.results_dir, exist_ok=True)
+            if self.is_main:
+                os.makedirs(self.results_dir, exist_ok=True)
         if load_checkpoint == "resume":
             load_checkpoint = self.logdir
         elif load_checkpoint == "" and eval_mode:
@@ -181,7 +200,7 @@ class Experiment:
                             if ".ckpt" in f], (
                     f"Folder {self.logdir} already contains saved models.")
             os.makedirs(self.logdir, exist_ok=True)
-        if not eval_mode or load_checkpoint == "":
+        if self.is_main and (not eval_mode or load_checkpoint == ""):
             with open(os.path.join(
                     self.logdir,
                     "config%s.yml" % ("_Eval" if eval_mode else "")),
@@ -384,6 +403,10 @@ class Experiment:
         self.render_generator = torch.Generator(
             device=self.device).manual_seed(seed)
         self.run_time_signature = time.time()
+        if self.mesh is not None:
+            # one run, one signature: rank 0's
+            self.run_time_signature = broadcast_object(
+                self.run_time_signature, 0, mesh=self.mesh)
 
         # --- models -----------------------------------------------------
         self._build_models()
@@ -406,6 +429,7 @@ class Experiment:
                 for k in ("mean", "std"):
                     self.sr_params["norm"][k].copy_(torch.as_tensor(
                         stats[k], dtype=torch.float32))
+        self._replicate_params()
 
         # --- samplers / logging / experiment info ------------------------
         self.image_sampler = ImageSampler(self.i_train, ds.scene_probs,
@@ -418,7 +442,8 @@ class Experiment:
         self.logger = ExperimentLogger(
             logdir=self.logdir, results_dir=self.results_dir,
             eval_mode=eval_mode, running=self.running,
-            skip_metrics=bool(cfg.get_path("dataset.llff.min_eval_frames")))
+            skip_metrics=bool(cfg.get_path("dataset.llff.min_eval_frames")),
+            writes=self.is_main)
         self.logger.set_eval_sequences(self.evaluation_sequences)
         self.experiment_info = {
             "start_i": 0, "eval_counter": 0,
@@ -454,6 +479,53 @@ class Experiment:
                 and getattr(self, "sr_params", None) is not None):
             out.append("SR")
         return out
+
+    def _build_mesh(self):
+        """The data-parallel mesh (JAX `_build_mesh`): with
+        `experiment.data_parallel` (true: the whole world; N: must be the
+        world size) under an initialized process group, a mesh over it --
+        even a world of 1, whose collectives then run on one rank; else
+        None (as JAX without more than one device). A world of more than
+        one rank needs data_parallel: each rank would otherwise train the
+        same logdir on its own."""
+        cfg = self.cfg
+        dp = cfg.experiment.get("data_parallel", False)
+        live = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if live else 1
+        if not dp:
+            if world > 1:
+                raise ValueError(f"a world of {world} ranks needs "
+                                 f"experiment.data_parallel")
+            return None
+        if int(cfg.experiment.get("model_parallel", 1)) > 1:
+            raise NotImplementedError(
+                "experiment.model_parallel > 1 (tensor parallelism) is not "
+                "ported yet: ROADMAP Queue 1 #2 (b)")
+        if cfg.get_path("nerf.train.store_planes.device_pool", False):
+            raise NotImplementedError(
+                "nerf.train.store_planes.device_pool is not ported yet: "
+                "ROADMAP Queue 1 #2 (c)")
+        n = world if dp is True else int(dp)
+        if n > world:
+            raise ValueError(f"experiment.data_parallel={n} exceeds the "
+                             f"{world} ranks of the process group")
+        if n != world:
+            raise ValueError(f"experiment.data_parallel={n} in a world of "
+                             f"{world} ranks: a mesh spans the world")
+        return make_mesh(n, device=self.device) if live else None
+
+    def _replicate_params(self):
+        """Rank 0's module parameters and optimizer moments on every rank,
+        in place (JAX `_place_params_on_mesh`, replicated): the ranks
+        start from the same state whatever each one loaded or drew."""
+        if self.mesh is None:
+            return
+        tree = [self.decoder_coarse, self.decoder_fine, self.sr_params]
+        for opt in (self.decoder_opt, self.sr_opt):
+            if opt is not None:
+                tree.append([[st["exp_avg"], st["exp_avg_sq"]]
+                             for st in opt.opt.state.values()])
+        replicate(self.mesh, tree)
 
     def _build_models(self):
         cfg = self.cfg
@@ -667,7 +739,9 @@ class Experiment:
         """Rolling checkpoints (the last one of each model kept), the best
         ones with as_best, and exp_info.pkl; the run's signature is
         checked first, so a newer run on the same logdir stops this one
-        here."""
+        here. Under a mesh only rank 0 writes them."""
+        if not self.is_main:
+            return
         check_run_signature(self.logdir, self.run_time_signature)
         self.experiment_info["running_scores"] = self.running.state_dict()
         for model in self._models_to_save():
@@ -711,8 +785,18 @@ class Experiment:
             assert os.path.isdir(folders[0]), \
                 f"missing planes folder {folders[0]}"
         os.makedirs(folders[0], exist_ok=True)
+        # time_sig.txt is rank 0's to claim and check
         self.store = PlaneStore(
-            folders, run_time_signature=self.run_time_signature)
+            folders, run_time_signature=(self.run_time_signature
+                                         if self.is_main else 0))
+        # scene ownership over the ranks: only a scene's owner reads and
+        # writes its plane file (JAX's Experiment never needs one: its
+        # single controller writes each scene once)
+        self.host_partition = None
+        if self.mesh is not None and self.mesh.world > 1:
+            self.host_partition = HostPartition(sorted({
+                self.scene_coupler.scene2saved.get(s, s)
+                for s in (self.training_scenes or list(self.i_val))}))
         optimize_planes = (any("planes" in m for m in self.what2train)
                            and not self.eval_mode)
 
@@ -731,11 +815,15 @@ class Experiment:
             init_std = decoder_tied_init_std(
                 self.decoder_coarse,
                 std_factor=cfg.get_path("nerf.train.STD_factor", 0.1))
-            for scene, res in self.scene_id_plane_resolution.items():
-                if scene in frozen or self.store.exists(scene):
-                    continue
-                if scene not in self.coords_normalization:
-                    continue
+            new = [(scene, res)
+                   for scene, res in self.scene_id_plane_resolution.items()
+                   if scene not in frozen and not self.store.exists(scene)
+                   and scene in self.coords_normalization]
+            if self.mesh is not None:
+                # rank 0's list, taken before any rank writes one: every
+                # rank draws the same planes from its generator
+                new = broadcast_object(new, 0, mesh=self.mesh)
+            for scene, res in new:
                 planes = create_scene_planes(
                     self.generator, num_planes=self.model_cfg.num_planes,
                     num_channels=self.model_cfg.num_plane_channels,
@@ -746,7 +834,9 @@ class Experiment:
                     rank_ratio=cfg.get_path(
                         "models.coarse.planes_rank_ratio", None),
                     box=self.coords_normalization[scene], device="cpu")
-                self.store.save(scene, planes)
+                if (self.host_partition is None
+                        or self.host_partition.owns(scene)):
+                    self.store.save(scene, planes)
 
         # the planes' plateau lr scheduler, stepped at print cadence
         sched = cfg.get_path("optimizer.lr_scheduler", None)
@@ -769,7 +859,8 @@ class Experiment:
             scene2saved=self.scene_coupler.scene2saved,
             do_when_reshuffling=lambda: self.scenes_cycle_counter.step(
                 print_str="Number of scene cycles performed: "),
-            rng=self.host_rng, device=self.device)
+            rng=self.host_rng, device=self.device,
+            host_partition=self.host_partition, mesh=self.mesh)
 
     # ------------------------------------------------------------------
     # rendering helpers
@@ -857,7 +948,11 @@ class Experiment:
         it changes which pixels a batch holds) and the geometry qualifies
         (bilinear planes, <= 64 channels, a batch of whole tiles), else
         None. The coarse pass's plane gathers then run the trainable
-        plane sampler's kernels in both directions."""
+        plane sampler's kernels in both directions. Under a mesh each
+        rank's rows must be whole tiles. (JAX refuses any mesh here: GSPMD
+        cannot partition its Pallas kernel. Each rank of the port runs
+        the kernels on its own rows, so only the split must keep tiles
+        whole, as JAX's eval gate asks of a ray block.)"""
         if (not self.planes_model
                 or not self.cfg.get_path("nerf.train.tiled_gather", False)):
             return None
@@ -865,7 +960,8 @@ class Experiment:
                 or self.model_cfg.num_plane_channels > HALF):
             return None
         th, tw = self.train_tile_shape()
-        if num_rays % (th * tw):
+        ranks = 1 if self.mesh is None else self.mesh.world
+        if num_rays % (ranks * th * tw):
             return None
         return TileSamplerConfig(tile_rays=th * tw)
 
@@ -874,7 +970,8 @@ class Experiment:
         qualifies (bilinear or bicubic planes, <= 64 plane channels, a
         ray block of whole tiles), else None. On by default where the
         kernels run (a CUDA device); nerf.validation.tiled_gather
-        overrides that either way."""
+        overrides that either way. Under a mesh, JAX's gate: deterministic
+        sampling, and a ray block of whole tiles for every rank."""
         enabled = self.cfg.get_path("nerf.validation.tiled_gather", None)
         if enabled is None:
             enabled = self.device.type == "cuda"
@@ -885,8 +982,12 @@ class Experiment:
             return None
         th, tw = self.eval_tile_shape()
         tc = TileSamplerConfig(tile_rays=th * tw)
-        if self._mode_render_cfg("validation",
-                                 scene_id).ray_block % tc.tile_rays:
+        rcfg = self._mode_render_cfg("validation", scene_id)
+        if rcfg.ray_block % tc.tile_rays:
+            return None
+        if self.mesh is not None and (
+                rcfg.perturb or rcfg.radiance_field_noise_std != 0.0
+                or rcfg.ray_block % (self.mesh.world * tc.tile_rays)):
             return None
         return tc
 
@@ -943,7 +1044,7 @@ class Experiment:
             scene_id.replace("_train", ""), "synt")
         sc_cfg = self.cfg.dataset[scene_type]
         rcfg = self._mode_render_cfg("validation", scene_id)
-        if self.planes_model and self.cfg.get_path(
+        if self.is_main and self.planes_model and self.cfg.get_path(
                 "models.coarse.plane_stats", False):
             self._update_plane_coverage(scene_id, planes, ro, rd, sc_cfg,
                                         rcfg)
@@ -955,12 +1056,18 @@ class Experiment:
         # is nothing to escalate (and no tiled_overflow_frac to report)
         pf_c, pf_f = self._point_fns_for_eval(scene_id, planes,
                                               skip_sr=skip_sr, tiled=tiled)
+        # under a mesh, a deterministic render shares its ray blocks over
+        # the ranks; one that draws (jitter, density noise) is rendered
+        # whole by every rank from the shared generator
+        deterministic = (not rcfg.perturb
+                         and rcfg.radiance_field_noise_std == 0.0)
         out = render_image(pf_c, pf_f, ro, rd, rcfg, near=sc_cfg["near"],
                            far=sc_cfg["far"], no_ndc=sc_cfg["no_ndc"],
                            hwf=hwf,
                            occ_aabb=self._occ_aabb_for(scene_id, planes),
                            tile=self.eval_tile_shape() if tiled else None,
-                           generator=self.render_generator)
+                           generator=self.render_generator,
+                           mesh=self.mesh if deterministic else None)
         return out, img
 
     # ------------------------------------------------------------------
@@ -1179,12 +1286,15 @@ class Experiment:
                                     and self.planes_buffer.optimize),
                 surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
                 tile_cfg=train_tc)
+            rays, target, generator = self._shard_batch(
+                rays, target, self.render_generator)
             metrics, grads = train_step(
                 self.decoder_coarse, self.decoder_fine, self.sr_params,
                 planes.params(), self._on_device("box", scene_id, planes.box),
-                rays, target, self.render_generator,
+                rays, target, generator,
                 model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
                 flags=flags)
+            metrics, grads = reduce_step(self.mesh, metrics, grads)
             if flags.track_surface_aabb:
                 # device tensors, fetched in one copy at the commit
                 self._occ_window.setdefault(scene_id, []).append(
@@ -1198,10 +1308,13 @@ class Experiment:
                 im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
                 ds_factor=coupler_ds,
                 share_coarse_fine=self.share_coarse_fine)
+            rays, target, generator = self._shard_batch(
+                rays, target, self.render_generator)
             metrics, grads = train_step_baseline(
                 self.decoder_coarse, self.decoder_fine, rays, target,
-                self.render_generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
+                generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
                 flags=flags, enc_cfg=self._enc_for(scene_id))
+            metrics, grads = reduce_step(self.mesh, metrics, grads)
 
         # module-gated optimizer steps
         confinements = self.dataset.module_confinements.get(scene_id, [])
@@ -1232,6 +1345,22 @@ class Experiment:
             (iteration, consistency_iter, sr_iter,
              torch.stack([metrics[k] for k in self._METRIC_STACK])))
         return new_drawn
+
+    def _shard_batch(self, rays, target, generator):
+        """This rank's rows of the global batch (JAX's sharded batch):
+        the rays and the target split contiguously, and a generator that
+        draws the global batch's numbers and keeps the rank's rows. On a
+        consistency iteration each target pixel owns its ds^2
+        consecutive rays, so whole patches go to a rank. As given without
+        a mesh."""
+        if self.mesh is None:
+            return rays, target, generator
+        lo, hi = data_sharding(self.mesh, target.shape[0])
+        n = rays.origins.shape[0]
+        per = n // target.shape[0]
+        assert n == per * target.shape[0], (n, target.shape)
+        return (shard_rays(self.mesh, rays), target[lo:hi],
+                RowShard(generator, lo * per, hi * per, n))
 
     _METRIC_STACK = ("loss", "coarse_loss", "fine_loss", "psnr",
                      "fine_psnr")
@@ -1445,7 +1574,11 @@ class Experiment:
     def run(self, max_iters: int = None):
         """Eval mode: draw the scenes and evaluate every view. Otherwise
         train from experiment_info["start_i"] to max_iters (default
-        experiment.train_iters), as the JAX package's loop does."""
+        experiment.train_iters), as the JAX package's loop does. Under a
+        mesh, when to evaluate, save and stop, and a preemption, are
+        rank 0's decisions (the time-based cadences differ by rank),
+        broadcast with the iteration's save decision, so no rank leaves
+        a collective that another waits in."""
         cfg = self.cfg
         if self.planes_model:
             self.planes_buffer.draw_scenes()
@@ -1486,16 +1619,17 @@ class Experiment:
             window_t0 = time.time()
             window_iters = 0
 
-        for iteration in range(self.experiment_info["start_i"], train_iters):
+        def evaluate_at(iteration):
             if isinstance(validate_every, list):
-                evaluate_now = (evaluation_time
-                                <= training_time * validate_every[0]
-                                or iteration - last_evaluated
-                                >= validate_every[1])
+                now = (evaluation_time <= training_time * validate_every[0]
+                       or iteration - last_evaluated >= validate_every[1])
             else:
-                evaluate_now = iteration % validate_every == 0
-            evaluate_now |= iteration == train_iters - 1
+                now = iteration % validate_every == 0
+            return now or iteration == train_iters - 1
 
+        start = self.experiment_info["start_i"]
+        evaluate_now, = agree(self.mesh, evaluate_at(start))
+        for iteration in range(start, train_iters):
             if evaluate_now:
                 flush_window()
                 last_evaluated = iteration
@@ -1516,10 +1650,11 @@ class Experiment:
 
             if iteration % print_every == 0 or iteration == train_iters - 1:
                 flush_window()
-                print("[TRAIN] Iter: %d Loss: %s PSNR: %s"
-                      % (iteration,
-                         np.mean(print_loss) if print_loss else "n/a",
-                         np.mean(print_psnr) if print_psnr else "n/a"))
+                if self.is_main:
+                    print("[TRAIN] Iter: %d Loss: %s PSNR: %s"
+                          % (iteration,
+                             np.mean(print_loss) if print_loss else "n/a",
+                             np.mean(print_psnr) if print_psnr else "n/a"))
                 if (self.planes_lr_scheduler is not None and print_loss
                         and self.planes_model):
                     self.planes_buffer.set_lr(
@@ -1535,6 +1670,9 @@ class Experiment:
             else:
                 save_now |= (time.time() - recently_saved) / 60 > save_every
             save_now |= iteration == train_iters - 1
+            # the next iteration's evaluate reads nothing the save changes
+            save_now, evaluate_now = agree(self.mesh, save_now,
+                                           evaluate_at(iteration + 1))
 
             if save_now:
                 save_as_best, quit_training = False, False
@@ -1553,6 +1691,20 @@ class Experiment:
                                 >= len(self.training_scenes)
                                 * no_improvement_iters):
                             quit_training = True
+                preempted = False
+                if self.mesh is not None:
+                    if self.is_main:
+                        try:
+                            check_run_signature(self.logdir,
+                                                self.run_time_signature)
+                        except PreemptedError:
+                            preempted = True
+                    save_as_best, quit_training, preempted = agree(
+                        self.mesh, save_as_best, quit_training, preempted)
+                    if preempted:
+                        raise PreemptedError(
+                            "Exiting run %f since a newer run has started."
+                            % self.run_time_signature)
                 recently_saved = time.time()
                 if self.planes_model and self.planes_buffer.optimize:
                     self.planes_buffer.save_params()

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nvsr_tpu_torch.ops import draws
 from nvsr_tpu_torch.ops.geometry import cart2az_el, normalize_coords
 from nvsr_tpu_torch.ops.grid_sample import (dense_bilinear_sample,
                                             grid_sample_2d,
@@ -199,8 +200,8 @@ def point_coords_noise(xyz, cfg: TriplaneConfig, plane_resolution: int,
     plane_resolution)."""
     assert plane_resolution is not None
     std = cfg.point_coords_noise * 2.0 / (1 + plane_resolution)
-    return xyz + std * torch.randn(xyz.shape, generator=generator,
-                                   dtype=xyz.dtype, device=xyz.device)
+    return xyz + std * draws.randn(xyz.shape, generator, dtype=xyz.dtype,
+                                   device=xyz.device)
 
 
 @functools.lru_cache(maxsize=16)

@@ -8,6 +8,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from nvsr_tpu_torch.ops import draws
+
 
 class RenderOutputs(NamedTuple):
     rgb: torch.Tensor      # [R, 3]
@@ -56,7 +58,7 @@ def volume_render(radiance_field, z_vals, ray_directions, *,
     if radiance_field_noise_std > 0.0 and (noise is not None
                                            or generator is not None):
         if noise is None:
-            noise = torch.randn(sigma_logit.shape, generator=generator,
+            noise = draws.randn(sigma_logit.shape, generator,
                                 dtype=sigma_logit.dtype,
                                 device=sigma_logit.device)
         sigma_logit = sigma_logit + radiance_field_noise_std * noise

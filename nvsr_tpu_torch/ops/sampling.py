@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nvsr_tpu_torch.ops import draws
+
 
 def linspace01(num: int, like: torch.Tensor) -> torch.Tensor:
     """[num] evenly spaced values on [0, 1] with the reference's f32
@@ -50,8 +52,8 @@ def stratified_z_vals(near, far, num_samples: int, *, lindisp: bool,
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
         if u is None:
-            u = torch.rand(z_vals.shape, generator=generator,
-                           dtype=z_vals.dtype, device=z_vals.device)
+            u = draws.rand(z_vals.shape, generator, dtype=z_vals.dtype,
+                           device=z_vals.device)
         z_vals = lower + (upper - lower) * u
     return z_vals
 
@@ -65,7 +67,7 @@ def sample_pdf(bins, weights, num_samples: int, det: bool = False,
     if det:
         u = linspace01(num_samples, bins).expand(shape)
     elif u is None:
-        u = torch.rand(shape, generator=generator, dtype=bins.dtype,
+        u = draws.rand(shape, generator, dtype=bins.dtype,
                        device=bins.device)
     return _invert_cdf(bins, weights, u)
 
@@ -111,8 +113,8 @@ def sorted_uniform(shape, generator: Optional[torch.Generator] = None,
                    dtype=torch.float32, device=None):
     """Sorted iid uniforms: normalized partial sums of n+1 exponentials."""
     n = shape[-1]
-    e = torch.empty(tuple(shape[:-1]) + (n + 1,), dtype=dtype,
-                    device=device).exponential_(generator=generator)
+    e = draws.exponential(tuple(shape[:-1]) + (n + 1,), generator,
+                          dtype=dtype, device=device)
     cums = torch.cumsum(e, dim=-1)
     return cums[..., :-1] / cums[..., -1:]
 

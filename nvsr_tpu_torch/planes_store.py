@@ -13,7 +13,9 @@ and the planes' Adam (counterpart of nvsr_tpu/planes_store.py).
     scenes every `steps_per_buffer` steps, puts each drawn scene's planes
     and its Adam state on the port's device once, steps them
     (`apply_grads`), and writes changed scenes back, Adam state included,
-    on a redraw, a save or an eval load;
+    on a redraw, a save or an eval load; across ranks
+    (`host_partition=`), each scene is read and written by its owner
+    rank only, which broadcasts what it read;
   * `PlanesOptimizer` -- one Adam per trained scene, the step inside the
     buffer.
 
@@ -30,6 +32,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from nvsr_tpu_torch.parallel.sharding import broadcast_object
 from nvsr_tpu_torch.scenes import SceneSampler
 from nvsr_tpu_torch.utils import native_store
 from nvsr_tpu_torch.utils.io import safe_load, safe_save, save_npz
@@ -263,15 +266,27 @@ class PlanesBuffer:
     callback marks scene cycles; frozen scenes never step or save;
     `save_params(as_best=True)` snapshots every training scene. Each
     resident scene's planes, and with optimize its Adam moments, live on
-    `device`; they are loaded once per draw and updated in place."""
+    `device`; they are loaded once per draw and updated in place.
+
+    host_partition: a parallel.host_pool.HostPartition over the saved
+    scene ids, with `mesh` the ranks that share this store (one process
+    each, the same draws on every rank): only a scene's owner reads its
+    file and writes it back, and what the owner reads reaches every rank
+    through HostPartition.broadcast. Every rank then steps the same
+    planes with the same averaged gradients, so the skipped writes lose
+    nothing. Without one (or with one rank) every scene is this
+    process's."""
 
     def __init__(self, store: PlaneStore, training_scenes, *, lr: float,
                  buffer_size: Optional[int] = None,
                  steps_per_buffer: int = -1, optimize: bool = True,
                  frozen_scenes=(), scene2saved: Optional[dict] = None,
                  do_when_reshuffling: Callable = None,
-                 rng: np.random.Generator = None, device="cuda"):
+                 rng: np.random.Generator = None, device="cuda",
+                 host_partition=None, mesh=None):
         self.store = store
+        self.host_partition = host_partition
+        self.mesh = mesh
         self.device = torch.device(device)
         self.training_scenes = list(training_scenes)
         self.scene2saved = scene2saved or {s: s for s in self.training_scenes}
@@ -302,21 +317,55 @@ class PlanesBuffer:
         return self.opt.lr
 
     # -- buffer management --------------------------------------------------
+    def _owns(self, saved: str) -> bool:
+        return self.host_partition is None or self.host_partition.owns(saved)
+
     def _flush(self):
         for scene in sorted(self.dirty):
-            self.store.save(scene, self.resident[scene],
-                            self.opt.state(scene))
+            if self._owns(scene):
+                self.store.save(scene, self.resident[scene],
+                                self.opt.state(scene))
         self.dirty.clear()
+
+    def _fetch(self, saved: str, prefer_best, with_opt_state: bool):
+        """A stored scene as (ScenePlanes on the device, PlanesAdamState |
+        None); prefer_best None: the best file if there is one. Shared
+        over ranks, only the owner reads the file: the small fields reach
+        the others as one object, the planes and Adam moments in one
+        broadcast into zeros of their shapes."""
+        part = self.host_partition
+        shared = (part is not None and part.process_count > 1
+                  and self.mesh is not None)
+        planes = opt_state = None
+        if not shared or part.owns(saved):
+            if prefer_best is None:
+                prefer_best = self.store.exists(saved, prefer_best=True)
+            planes, opt_state = self.store.load(
+                saved, prefer_best=prefer_best, with_opt_state=with_opt_state)
+            planes = replace(
+                planes, planes_pos=planes.planes_pos.to(self.device),
+                plane_view=None if planes.plane_view is None
+                else planes.plane_view.to(self.device))
+            if shared and opt_state is not None:
+                opt_state = opt_state._replace(**{
+                    m: {k: torch.tensor(np.asarray(v), device=self.device)
+                        for k, v in getattr(opt_state, m).items()}
+                    for m in ("mu", "nu")})
+        if shared:
+            spec = broadcast_object(
+                None if planes is None else _spec(planes, opt_state),
+                part.owner(saved), mesh=self.mesh)
+            if planes is None:
+                planes, opt_state = _zeros_of(spec, self.device)
+            part.broadcast([planes.params(), None if opt_state is None
+                            else [opt_state.mu, opt_state.nu]],
+                           saved, self.mesh)
+        return planes, opt_state
 
     def _load(self, saved: str, prefer_best: bool, trained: bool):
         """Put a stored scene on the device; with `trained`, its Adam
         state too (the stored one, else a fresh one)."""
-        planes, opt_state = self.store.load(saved, prefer_best=prefer_best,
-                                            with_opt_state=trained)
-        planes = replace(
-            planes, planes_pos=planes.planes_pos.to(self.device),
-            plane_view=None if planes.plane_view is None
-            else planes.plane_view.to(self.device))
+        planes, opt_state = self._fetch(saved, prefer_best, trained)
         self.resident[saved] = planes
         if trained:
             self.opt.add_scene(saved, planes.params(), opt_state)
@@ -350,9 +399,10 @@ class PlanesBuffer:
         where the buffer is redrawn, and the native store is built)."""
         if self.steps_per_buffer == -1 or not native_store.available():
             return
-        paths = [self.store.path(self.scene2saved.get(sc, sc),
-                                 must_exist=True)
+        saved = [self.scene2saved.get(sc, sc)
                  for sc in self.sampler.sample_from[:self.buffer_size]]
+        paths = [self.store.path(s, must_exist=True) for s in saved
+                 if self._owns(s)]
         paths = [p for p in paths if p]
         if paths:
             self._prefetch = native_store.Prefetcher(paths, n_threads=2)
@@ -434,6 +484,8 @@ class PlanesBuffer:
             if saved in saved_set:
                 continue
             saved_set.append(saved)
+            if not self._owns(saved):
+                continue
             if saved in self.resident:
                 self.store.save(saved, self.resident[saved],
                                 self.opt.state(saved), as_best=as_best)
@@ -455,8 +507,7 @@ class PlanesBuffer:
             if saved in self.resident:
                 planes = self.resident[saved]
             else:
-                best = self.store.exists(saved, prefer_best=True)
-                planes, _ = self.store.load(saved, prefer_best=best)
+                planes, _ = self._fetch(saved, None, False)
             pos = _numpy(planes.planes_pos)
             means.extend(pos.mean(axis=(2, 3)))
             stds.extend(pos.reshape(*pos.shape[:2], -1).std(axis=2))
@@ -466,6 +517,38 @@ class PlanesBuffer:
                 stds.append(pv.reshape(pv.shape[0], -1).std(axis=1))
         return {"mean": np.stack(means).mean(0),
                 "std": np.stack(stds).mean(0)}
+
+
+def _spec(planes: ScenePlanes, opt_state):
+    """(planes, opt_state) with each tensor as its (shape, dtype): what
+    a rank that does not read the file needs to receive it."""
+    def desc(t):
+        return None if t is None else (tuple(t.shape), t.dtype)
+
+    spec_planes = replace(planes, planes_pos=desc(planes.planes_pos),
+                          plane_view=desc(planes.plane_view))
+    if opt_state is not None:
+        opt_state = opt_state._replace(
+            mu={k: desc(v) for k, v in opt_state.mu.items()},
+            nu={k: desc(v) for k, v in opt_state.nu.items()})
+    return spec_planes, opt_state
+
+
+def _zeros_of(spec, device):
+    """Zeros on `device` in the place of every (shape, dtype) of a
+    _spec."""
+    def zeros(d):
+        return None if d is None else torch.zeros(d[0], dtype=d[1],
+                                                  device=device)
+
+    planes, opt_state = spec
+    planes = replace(planes, planes_pos=zeros(planes.planes_pos),
+                     plane_view=zeros(planes.plane_view))
+    if opt_state is not None:
+        opt_state = opt_state._replace(
+            mu={k: zeros(v) for k, v in opt_state.mu.items()},
+            nu={k: zeros(v) for k, v in opt_state.nu.items()})
+    return planes, opt_state
 
 
 _ADAM_HYPERPARAMS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
@@ -519,13 +602,16 @@ class PlanesOptimizer:
         opt = self._opt(scene)
         step = torch.tensor(float(np.asarray(state.count).reshape(-1)[0]),
                             dtype=torch.float32)
+
+        def moment(x, p):
+            if torch.is_tensor(x):
+                return x.to(p.device)
+            return torch.tensor(np.asarray(x), device=p.device)
+
         for k, p in planes.items():
-            opt.state[p] = {
-                "step": step.clone(),
-                "exp_avg": torch.tensor(np.asarray(state.mu[k]),
-                                        device=p.device),
-                "exp_avg_sq": torch.tensor(np.asarray(state.nu[k]),
-                                           device=p.device)}
+            opt.state[p] = {"step": step.clone(),
+                            "exp_avg": moment(state.mu[k], p),
+                            "exp_avg_sq": moment(state.nu[k], p)}
         # the scalars as stored (the native store keeps a 0-d array as
         # shape (1,)), so a state saved again without a step is the same
         self._wrapper[scene] = {

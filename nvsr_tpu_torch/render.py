@@ -16,6 +16,7 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from nvsr_tpu_torch.models.nerf_mlp import apply_nerf_mlp
 from nvsr_tpu_torch.ops import encoding as enc
@@ -24,6 +25,7 @@ from nvsr_tpu_torch.ops.occupancy import tighten_near_far
 from nvsr_tpu_torch.ops.rendering import RenderOutputs, volume_render
 from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
                                          stratified_z_vals)
+from nvsr_tpu_torch.parallel.sharding import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +152,10 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
     """Coarse -> hierarchical resample -> fine for one ray batch.
     `generator` draws the stratified jitter and the fine-pass uniforms
     when rcfg.perturb is set, and the density noise when
-    rcfg.radiance_field_noise_std is; an eval render draws nothing.
+    rcfg.radiance_field_noise_std is; an eval render draws nothing. A
+    shard of a batch split over ranks passes an ops.draws.RowShard: each
+    draw is then the global batch's, of which the shard keeps its rows,
+    so W ranks draw what one rank draws for the whole batch.
     rcfg.stop_coarse_grad detaches the coarse radiance field (and so the
     resampling weights) from the graph. With rcfg.mip, each pass samples
     one more edge than it has intervals and its point fn gets pts=None
@@ -197,36 +202,96 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
 
 def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
                         rcfg: RenderConfig,
-                        generator: Optional[torch.Generator] = None
-                        ) -> RenderResult:
+                        generator: Optional[torch.Generator] = None,
+                        mesh=None) -> RenderResult:
     """Render any number of rays in blocks of rcfg.ray_block; the last
-    block is zero-padded to full size (its pad rays are cropped)."""
+    block is zero-padded to full size (its pad rays are cropped).
+
+    mesh: a parallel.sharding.Mesh: each rank renders whole blocks,
+    round-robin (block i on rank i % W), so every kernel launch keeps
+    the full block; it writes them into zeros of the image's outputs,
+    and one all_reduce(SUM) assembles them (exact: each entry is x + 0).
+    Only a deterministic render (no jitter, no density noise) may take
+    it, as JAX's mesh-sharded eval requires."""
     n = rays.origins.shape[0]
     block = min(rcfg.ray_block, max(n, 1))
     n_blocks = -(-n // block)
-    results = []
-    for i in range(n_blocks):
+    mine = list(range(n_blocks))
+    todo = mine
+    if mesh is not None:
+        assert not rcfg.perturb and rcfg.radiance_field_noise_std == 0.0, \
+            "a mesh-sharded render requires deterministic sampling"
+        mine = list(range(mesh.rank, n_blocks, mesh.world))
+        # a rank without a block of its own renders block 0 only for the
+        # outputs' shapes, so that it joins the collective
+        todo = mine or [0]
+    results = {}
+    for i in todo:
         lo, hi = i * block, min((i + 1) * block, n)
         blk = RayBundle(*[None if f is None else f[lo:hi] for f in rays])
         if hi - lo < block:
             pad = block - (hi - lo)
             blk = RayBundle(*[None if f is None else torch.cat(
                 [f, f.new_zeros((pad,) + f.shape[1:])]) for f in blk])
-        results.append(render_rays(point_fn_coarse, point_fn_fine, blk,
-                                   rcfg, generator))
+        results[i] = render_rays(point_fn_coarse, point_fn_fine, blk,
+                                 rcfg, generator)
 
-    def unblock(outs):
-        if outs[0] is None:
+    # every rank names the same aux keys (the template block's too), so
+    # all of them join or skip its reduction; a rank without a block of
+    # its own adds -inf
+    aux = {k: -math.inf for res in results.values() for k in (res.aux or {})}
+    for i in mine:
+        for k, v in (results[i].aux or {}).items():
+            aux[k] = max(aux[k], v)
+    if mesh is None:
+        def unblock(outs):
+            if outs[0] is None:
+                return None
+            return RenderOutputs(*[None if f[0] is None else torch.cat(f)[:n]
+                                   for f in zip(*outs)])
+
+        return RenderResult(unblock([r.coarse for r in results.values()]),
+                            unblock([r.fine for r in results.values()]),
+                            aux or None)
+    return _assemble(results, mine, n_blocks, block, n, aux, mesh)
+
+
+def _assemble(results: dict, mine: list, n_blocks: int, block: int, n: int,
+              aux: dict, mesh) -> RenderResult:
+    """The image of a mesh-sharded render from each rank's blocks `mine`
+    (rendered in `results`): each output field as zeros of the whole
+    padded image with this rank's blocks written in, one all_reduce(SUM)
+    over every field; the aux scalars (each a max over blocks) reduced
+    with MAX."""
+    first = next(iter(results.values()))
+
+    def zeros(out):
+        if out is None:
             return None
-        return RenderOutputs(*[None if f[0] is None else torch.cat(f)[:n]
-                               for f in zip(*outs)])
+        return RenderOutputs(*[None if f is None else f.new_zeros(
+            (n_blocks * block,) + f.shape[1:]) for f in out])
 
-    aux = {}
-    for res in results:
-        for k, v in (res.aux or {}).items():
-            aux[k] = max(aux[k], v) if k in aux else v
-    return RenderResult(unblock([r.coarse for r in results]),
-                        unblock([r.fine for r in results]), aux or None)
+    full = RenderResult(zeros(first.coarse), zeros(first.fine))
+    for i in mine:
+        res = results[i]
+        for dst, src in ((full.coarse, res.coarse), (full.fine, res.fine)):
+            if dst is None:
+                continue
+            for d, s in zip(dst, src):
+                if d is not None:
+                    d[i * block:(i + 1) * block] = s
+    full = all_reduce_((full.coarse, full.fine), mesh=mesh)
+    if aux:
+        keys = sorted(aux)
+        t = torch.tensor([float(aux[k]) for k in keys], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.cpu_group)
+        aux = dict(zip(keys, t.tolist()))
+
+    def crop(out):
+        return None if out is None else RenderOutputs(
+            *[None if f is None else f[:n] for f in out])
+
+    return RenderResult(crop(full[0]), crop(full[1]), aux or None)
 
 
 def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
@@ -386,8 +451,8 @@ def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,
                  rcfg: RenderConfig, *, near: float, far: float,
                  no_ndc: bool = True, hwf=None, occ_aabb=None,
                  tile=None, tighten_tile_union: bool = True,
-                 generator: Optional[torch.Generator] = None
-                 ) -> RenderResult:
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None) -> RenderResult:
     """Full-image render of [H, W, 3] ray maps -> maps with [H, W, ...]
     leading shape.
 
@@ -395,7 +460,8 @@ def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,
     it. tile: image-tile side (or (th, tw)): rays render in tile-major
     order (images not a tile multiple are edge-padded, then cropped) and,
     with occ_aabb and tighten_tile_union, each tile samples the union of
-    its hit rays' intervals, exactly as the JAX tiled eval does."""
+    its hit rays' intervals, exactly as the JAX tiled eval does. mesh:
+    the ray blocks shared over its ranks (render_rays_chunked)."""
     h, w = ray_origins.shape[:2]
     hp, wp = h, w
     if tile:
@@ -417,7 +483,7 @@ def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,
                               tile_rays=th_ * tw_
                               if tile and tighten_tile_union else None)
     result = render_rays_chunked(point_fn_coarse, point_fn_fine, rays, rcfg,
-                                 generator)
+                                 generator, mesh=mesh)
 
     def reshape(out):
         if out is None:

@@ -23,9 +23,11 @@ import torch
 
 from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
+from nvsr_tpu_torch.ops import draws
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr
 from nvsr_tpu_torch.ops.resize import avg_downsample_pixels
+from nvsr_tpu_torch.parallel.sharding import all_reduce_
 from nvsr_tpu_torch.planes_store import materialize_pos_planes
 from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
                                    make_baseline_point_fn,
@@ -126,7 +128,8 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     batch's flat RayBundle; target [R, 3]; generator: a torch.Generator
     on the rays' device, which draws every random number of the step
     (jitter, density noise, SR noise, point noise) in the JAX key's
-    place.
+    place; a shard of a batch split over ranks passes an
+    ops.draws.RowShard of it (render.render_rays).
 
     Returns (metrics, grads): metrics holds detached scalar tensors
     (loss, coarse_loss, fine_loss, psnr, fine_psnr, and overflow_frac on
@@ -162,8 +165,9 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     if flags.sr_iter and sr is not None:
         sr_in = planes_pos.detach() if flags.detach_lr_planes \
             else planes_pos
+        # the SR net's noise is of the planes, not of the batch's rows
         fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
-                                     generator=generator)
+                                     generator=draws.base(generator))
         if flags.apply_sr_to_coarse:
             coarse_planes = fine_planes
 
@@ -213,6 +217,32 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     if flags.track_surface_aabb:
         metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
     return metrics, grads
+
+
+_MEAN_METRICS = ("loss", "coarse_loss", "fine_loss")
+_SUM_METRICS = ("surf_w", "surf_wx", "surf_wx2")
+
+
+def reduce_step(mesh, metrics: dict, grads: dict):
+    """One step's metrics and gradients over a data-parallel mesh (the
+    psum XLA inserts in JAX). Gradients and the loss terms are averaged
+    over the ranks: the shards are equal, so the mean of their losses'
+    gradients is the gradient of the global batch's mean loss. The PSNRs
+    are recomputed from the averaged MSEs (a mean of PSNRs is not the
+    PSNR of the mean); the surface moments are sums. One all_reduce
+    (SUM) carries all of it. Returns (metrics, grads); both as given
+    without a mesh."""
+    if mesh is None:
+        return metrics, grads
+    mean = {"grads": grads, **{k: metrics[k] for k in _MEAN_METRICS}}
+    sums = {k: metrics[k] for k in _SUM_METRICS if k in metrics}
+    mean, sums = all_reduce_((mean, sums), mesh=mesh)
+    if mesh.world > 1:
+        torch._foreach_div_(_leaves(mean), float(mesh.world))
+    out = dict(metrics, **sums, **{k: mean[k] for k in _MEAN_METRICS})
+    out["psnr"] = mse2psnr(out["loss"])
+    out["fine_psnr"] = mse2psnr(out["fine_loss"])
+    return out, mean["grads"]
 
 
 def _surface_moments(out, rays: RayBundle, flags: StepFlags,

@@ -7,9 +7,9 @@ TensorBoard as collaged grids with PSNR overlays during training, and to
 per-scene PNG dirs / metrics.txt / 30fps mp4 in eval mode.
 
 The port's copy of nvsr_tpu/utils/logging.py: eval-mode PNGs are written
-by `utils/png.py` instead of imageio; the collage and the mp4 writer
-keep their lazy cv2 and imageio imports (only the training writer and
-`--eval video` reach them).
+by `utils/png.py`, and mp4s by cv2's VideoWriter, instead of imageio;
+the collage and the mp4 writer keep their lazy cv2 imports (only the
+training writer and `--eval video` reach them).
 """
 
 from __future__ import annotations
@@ -69,14 +69,8 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def write_mp4(path: str, frames_u8, fps: int = 30) -> bool:
-    """30fps mp4 (reference train_nerf.py:271-273). Tries imageio's
-    ffmpeg backend, then cv2's VideoWriter; keeps PNGs on failure."""
-    try:
-        import imageio.v2 as imageio
-        imageio.mimwrite(path, frames_u8, fps=fps, macro_block_size=8)
-        return True
-    except Exception:
-        pass
+    """30fps mp4 (reference train_nerf.py:271-273) through cv2's
+    VideoWriter; keeps PNGs on failure."""
     try:
         import cv2
         h, w = frames_u8[0].shape[:2]
@@ -146,17 +140,21 @@ def arrange_images(images, text: str = None, psnrs=()) -> np.ndarray:
 class ExperimentLogger:
     """Dispatches scalars/images to TensorBoard (training) or to
     per-scene result folders (eval), matching reference
-    write_scalar/write_image (train_nerf.py:245-275)."""
+    write_scalar/write_image (train_nerf.py:245-275). With writes=False
+    (every rank of a data-parallel run but rank 0) nothing is written;
+    the running means are kept all the same, so every rank holds rank
+    0's."""
 
     def __init__(self, logdir: str = None, results_dir: str = None,
                  eval_mode: str = None, running: RunningScores = None,
-                 skip_metrics: bool = False):
+                 skip_metrics: bool = False, writes: bool = True):
         self.eval_mode = eval_mode
         self.results_dir = results_dir
         self.running = running
         self.skip_metrics = skip_metrics
+        self.writes = writes
         self.writer = None
-        if logdir is not None and not eval_mode:
+        if logdir is not None and not eval_mode and writes:
             try:
                 from tensorboardX import SummaryWriter
                 self.writer = SummaryWriter(logdir)
@@ -169,7 +167,7 @@ class ExperimentLogger:
 
     def write_scalar(self, name: str, value, index):
         if self.eval_mode:
-            if self.skip_metrics:
+            if self.skip_metrics or not self.writes:
                 return
             folder = os.path.join(self.results_dir,
                                   self._eval_seq_names[index])
@@ -188,6 +186,8 @@ class ExperimentLogger:
 
     def write_images(self, name: str, images, text: str, iteration,
                      psnrs=(), psnr_gains=(), white_bg: bool = False):
+        if not self.writes:
+            return
         if self.eval_mode:
             scene_name = self._eval_seq_names[int(text)]
             folder = os.path.join(self.results_dir,

@@ -21,6 +21,13 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
+def is_png(path: str) -> bool:
+    """Whether the file starts with the PNG signature (whatever its
+    name says)."""
+    with open(path, "rb") as f:
+        return f.read(8) == _SIGNATURE
+
+
 def _chunks(data: bytes):
     """Yield (type, payload) for each chunk after the signature."""
     if data[:8] != _SIGNATURE:

@@ -85,6 +85,9 @@ def test_port_imports_neither_jax_nor_reference():
         "fused_render", "fused_decoder", "gather_dma")} <= set(mods), mods
     assert {"nvsr_tpu_torch.convert", "nvsr_tpu_torch.ops.encoding",
             "nvsr_tpu_torch.models.nerf_mlp"} <= set(mods), mods
+    assert {"nvsr_tpu_torch.parallel." + m for m in (
+        "sharding", "host_pool", "dryrun")} | {
+            "nvsr_tpu_torch.ops.draws"} <= set(mods), mods
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):

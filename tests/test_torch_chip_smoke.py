@@ -132,3 +132,16 @@ def test_sr_gaps_phase_rehearses_on_the_cpu():
     small = dict(channels=4, res=12, sr_hidden=8, sr_blocks=2, sr_scale=2,
                  srresnet_hidden=8, srresnet_blocks=2, tile=5, reps=1)
     assert cs.sr_gaps_phase("cpu", w=small, on_card=False) is None
+
+
+def test_dist_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's phase 11 on the CPU at a small width, through the
+    entry point as on the card (`python -m torch.distributed.run ...
+    chip_smoke.py --cli`, which runs nvsr_tpu_torch.cli with the phase's
+    probes): the plain run and worlds of 1 and 2 under gloo, their
+    logdirs, `--eval images` of one logdir by each, ownership and rank
+    0's files; every comparison of the world of 1 bit for bit."""
+    cs = _chip_smoke()
+    small = dict(rays=128, samples=4, channels=8, res=12, view_res=4,
+                 sr_hidden=4, sr_blocks=1, sr_scale=2, image=32)
+    cs.dist_phase("cpu", w=small, on_card=False, iters=4)
