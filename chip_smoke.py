@@ -152,13 +152,55 @@ Phases (any failure raises and the script exits non-zero):
      per iteration and the full entry twice per eval block of each
      rank's. Prints both per-iteration medians (the distributed path's
      cost), the collectives per iteration and each rank's peak memory.
+ 12. tensor parallel and the device pool through the entry point, as
+     phase 11 drives data parallel (`chip_smoke.py --cli` under
+     torchrun), at phase 9's widths (4+4 decoders 128 wide, 3x48x200^2
+     planes, EDSR 256 wide x4 bf16 with remat, 4096 rays, 16+16, the
+     trainable route, the tiled eval: a tensor-parallel rank renders
+     with the decoders gathered once a pass, a pooled one on the lent
+     planes), cut to: the EDSR trunk 4
+     blocks deep (of 32), synthetic scenes 400 pixels wide (eval views of
+     200^2 and 50^2 rays), 4 iterations (an evaluate at the first and
+     the last, one save); every cut because two gloo ranks sharing the
+     card move each split conv's output and each row layer's partial
+     sums through host memory. (a) `model_parallel: 2` as a world of 2
+     (gloo, both ranks on cuda:0) on phase 9's scene, beside a plain run
+     (timed alone first) and a second plain run (the control) and the
+     dry run `python -m nvsr_tpu_torch.parallel.dryrun 2
+     --model-parallel 2 --device cuda:0 --dist-backend gloo`; then
+     `--eval images` of its logdir by a world of 2 and by one process.
+     (b) `store_planes.device_pool: true` as a world of 2 on four
+     synthetic scenes in both groups (each rank home to two) beside the
+     replicated world of 2; then `--eval images` of its logdir likewise.
+     Checks: the tensor-parallel losses and PSNRs within JAX's bounds of
+     the plain run's (rtol 2e-4 / atol 1e-6), its logdir in the full
+     layout (the plain run's files, keys and shapes) with parameters
+     within TP_PARAM_BOUND (fixed from several calls' readings), the
+     evals of one logdir within rtol 1e-3 / atol 1e-4, each rank's split
+     decoder, SR and Adam bytes half the full ones with only the heads
+     and the row layers' biases whole; the pool's first loss equal to
+     the replicated world's and the rest within JAX's data-parallel
+     bounds, its parameters within DP_PARAM_BOUND, its eval, its homes
+     JAX's round robin, each plane file written by its home only, and
+     after every step each rank keeping exactly its home scenes' planes
+     and moments and nothing of the others; the sampler launched once
+     per iteration per rank and the full entry twice per eval block of
+     the rank's data index, nothing else. `--controls` also trains a
+     second tensor-parallel run and two with a fault planted
+     (plant_fault), whose parameters must lie outside TP_PARAM_BOUND.
+     Prints the iteration medians
+     beside the plain ones, the collectives of an iteration by group and
+     kind with bytes, and each rank's peak memory.
 Each kernel's bound is the larger of its bytes over 3.35 TB/s and its
 operations over the H100's peak for their type (989 TFLOP/s bf16 tensor
 core, 67 TFLOP/s f32), counted from this run's shapes.
 The last two lines are the kernels JSON and the result JSON.
 
-python3 chip_smoke.py --cli REPORT <cli arguments> is phase 11's process
-of one rank (see cli_rank).
+python3 chip_smoke.py --cli REPORT <cli arguments> is the process of one
+rank of phases 11 and 12 (see cli_rank). python3 chip_smoke.py --phase 12
+[--controls] builds the kernels and runs phase 12 alone, with its checks
+(--controls: also its record runs, see tp_phase), and prints no result
+lines.
 
 python3 chip_smoke.py --times [ROOT ...] checks nothing: it times the
 decoder's kernels, the plane sampler's kernels beside F.grid_sample, the
@@ -2976,13 +3018,62 @@ DP_IMG_RTOL, DP_IMG_ATOL = 1e-4, 2e-5
 DP_PARAM_BOUND = {"planes": 3e-3, "decoders": 1.5e-4, "SR": 1e-5}
 
 
+def tensor_bytes(tree):
+    """The bytes of the tensors in a nested dict / list / tuple."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def pool_probe(buf):
+    """What a rank's PlanesBuffer keeps between steps: its plane and Adam
+    bytes, the bytes its home scenes' planes and moments make (planes, mu
+    and nu of each trained home scene), the tensors it holds of scenes
+    homed elsewhere, and whether a scene is still lent."""
+    part = buf.host_partition
+    home = [s for s in buf.resident if part.owns(s)]
+    want = sum(tensor_bytes(buf.resident[s].params())
+               * (3 if s in buf.opt.planes else 1) for s in home)
+    foreign = sum(tensor_bytes(buf.resident[s].params())
+                  for s in buf.resident if not part.owns(s)) + sum(
+        1 for s in buf.opt.planes if not part.owns(s))
+    return {"bytes": buf.resident_bytes(), "home_bytes": want,
+            "foreign": foreign, "lent": buf._lent is not None}
+
+
+def plant_fault(name):
+    """A deliberately broken tensor-parallel port, for phase 12's controls
+    (the readings its parameter bound must fail): "drop_pair" leaves
+    copy_to_model out (identity both ways: a replicated input's gradient
+    keeps this rank's part only), "bf16_reduce" rounds a row layer's
+    partial sums to bf16 before they are summed."""
+    from nvsr_tpu_torch.parallel import tensor
+    if name == "drop_pair":
+        tensor.copy_to_model = lambda x, mesh: x
+    elif name == "bf16_reduce":
+        real = tensor.reduce_from_model
+        tensor.reduce_from_model = lambda x, mesh: real(
+            x.bfloat16().to(x.dtype), mesh)
+    else:
+        raise ValueError(f"no planted fault {name!r}")
+
+
 def cli_rank(report, argv):
-    """One process of phase 11: nvsr_tpu_torch.cli.main(argv) with probes:
-    each train_iteration between two synchronizes, with the collectives it
-    made; the flushed train/loss and train/psnr; each eval render's rgb
-    (eval mode) and the kernel launches this rank's share of its blocks
-    needs; the plane files and pickles this rank wrote; launch counts and
-    peak device memory. Pickled to REPORT.<rank>.pkl."""
+    """One process of phases 11 and 12: nvsr_tpu_torch.cli.main(argv) with
+    probes (argv may start with --plant NAME: plant_fault first): each
+    train_iteration between two synchronizes, with the collectives it
+    made (and under the device pool what the buffer keeps after it:
+    pool_probe); the flushed train/loss and train/psnr; each
+    eval render's rgb (eval mode) and the kernel launches this rank's
+    share of its blocks needs; the plane files and pickles this rank
+    wrote; the scene homes, and the bytes of this rank's decoder and SR
+    slices and their Adam moments; launch counts and peak device memory.
+    Pickled to REPORT.<rank>.pkl."""
     import pickle
     import torch
     sys.path.insert(0, ROOT)
@@ -2994,13 +3085,17 @@ def cli_rank(report, argv):
     rank = int(os.environ.get("RANK", 0))
     world = int(os.environ.get("WORLD_SIZE", 1))
     on_card = torch.cuda.is_available()
+    if argv[:1] == ["--plant"]:
+        plant_fault(argv[1])
+        argv = argv[2:]
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
     rec = {"iters": [], "scalars": [], "renders": [], "planes_written": [],
-           "pickles": [], "want_full": 0}
+           "pickles": [], "want_full": 0, "modules": None, "homes": None}
+    made = []
     exp_cls = experiment.Experiment
     real_iter, real_render = exp_cls.train_iteration, \
         exp_cls.render_eval_image
@@ -3017,7 +3112,11 @@ def cli_rank(report, argv):
             "sr": self._pending_metrics[-1][2],
             "ms": (time.perf_counter() - t) * 1e3,
             "collectives": {k: v - before.get(k, 0)
-                            for k, v in sharding.COLLECTIVES.items()}})
+                            for k, v in sharding.COLLECTIVES.items()},
+            "pool": pool_probe(self.planes_buffer)
+            if self.planes_buffer.device_pool else None})
+        if not made:
+            made.append(self)
         return out
 
     def render_eval_image(self, scene_id, img_idx, skip_sr=False):
@@ -3031,7 +3130,8 @@ def cli_rank(report, argv):
             rays = -(-h // th) * th * -(-w // tw) * tw
             block = self._mode_render_cfg("validation", scene_id).ray_block
             blocks = -(-rays // block)
-            mine = len(range(rank, blocks, world)) if self.mesh else blocks
+            mine = len(range(self.mesh.data_index, blocks,
+                             self.mesh.data_size)) if self.mesh else blocks
             rec["want_full"] += 2 * max(mine, 1)
         if self.eval_mode:
             rec["renders"].append(((scene_id, img_idx, skip_sr),
@@ -3063,6 +3163,28 @@ def cli_rank(report, argv):
     t0 = time.perf_counter()
     cli.main(argv)
     sync()
+    if made:
+        exp = made[0]
+        part = exp.planes_buffer.host_partition
+        rec["homes"] = None if part is None else part.owners
+
+        def split_whole(tree, layout):
+            """(bytes of split leaves, bytes of whole ones) on this rank."""
+            if not exp._layouts:
+                return 0, tensor_bytes(tree)
+            pairs = sharding.zip_layout(tree, layout)
+            return tuple(sum(tensor_bytes(t) for t, a in pairs
+                             if (a is None) != split) for split in (1, 0))
+
+        dec = exp._layouts.get("decoder")
+        rec["modules"] = {
+            "decoders": split_whole([exp.decoder_coarse, exp.decoder_fine],
+                                    [dec, dec]),
+            "SR": split_whole(exp.sr_params, exp._layouts.get("SR")),
+            "moments": [split_whole(opt.state[0][m], exp._opt_layout(opt)
+                                    if exp._layouts else None)
+                        for opt in (exp.decoder_opt, exp.sr_opt)
+                        if opt is not None for m in (1, 2)]}
     rec.update(seconds=time.perf_counter() - t0, rank=rank, world=world,
                launches={k.symbol: k.launches for k in kernels.KERNELS},
                collectives=dict(sharding.COLLECTIVES),
@@ -3070,6 +3192,165 @@ def cli_rank(report, argv):
                          if on_card else None))
     with open(f"{report}.{rank}.pkl", "wb") as f:
         pickle.dump(rec, f)
+
+
+class CliRuns:
+    """The CLI runs of phases 11 and 12 in a scratch `root`: each run a
+    process in a session of its own (stopping it stops torchrun's
+    workers), started from `root` with the repo importable and gloo (and
+    NCCL) on the loopback interface; `make_cfg(logdir)` writes a run's
+    config the first time its name is launched."""
+
+    def __init__(self, root, on_card, iters, phase, make_cfg):
+        self.root, self.on_card, self.iters = root, on_card, iters
+        self.phase, self.make_cfg = phase, make_cfg
+        self.env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT, os.environ.get("PYTHONPATH", "")]),
+            GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+        if not on_card:
+            self.env["OMP_NUM_THREADS"] = "1"
+        self.device = [] if on_card else ["--device", "cpu"]
+        # two gloo ranks: on the one card, or on the CPU
+        self.gloo = ["--dist-backend", "gloo"] + (["--device", "cuda:0"]
+                                                  if on_card else [])
+        self.started = []
+
+    def stop_all(self):
+        """Stop every run still going, torchrun's workers with it."""
+        for proc in self.started:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+
+    def start(self, report, cmd):
+        with open(report + ".log", "w") as log:
+            proc = subprocess.Popen(cmd, cwd=self.root, env=self.env,
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        self.started.append(proc)
+        return proc
+
+    def launch(self, name, cfg_of, world=None, extra=(), plant=None):
+        """`chip_smoke.py --cli` (cli_rank) on the config of `cfg_of` (its
+        logdir logs/<cfg_of>), under torchrun with `world` ranks when
+        given, with the fault `plant` planted when given."""
+        path = os.path.join(self.root, f"{cfg_of}.yml")
+        if not os.path.exists(path):
+            with open(path, "w") as f:
+                f.write(self.make_cfg(f"logs/{cfg_of}").dump())
+        report = os.path.join(self.root, f"report_{name}")
+        cmd = [sys.executable]
+        if world:
+            cmd += ["-m", "torch.distributed.run", "--standalone",
+                    f"--nproc_per_node={world}"]
+        cmd += [os.path.join(ROOT, "chip_smoke.py"), "--cli", report,
+                *(["--plant", plant] if plant else []), "--config", path,
+                "--max-iters", str(self.iters), *self.device, *extra]
+        return name, self.start(report, cmd), report, world or 1
+
+    def launch_dryrun(self, extra=()):
+        """The port's dry run on the card: two gloo ranks on cuda:0
+        against the world of 1 and a second world of 1."""
+        report = os.path.join(self.root, "report_dryrun")
+        return "dryrun", self.start(report, [
+            sys.executable, "-m", "nvsr_tpu_torch.parallel.dryrun", "2",
+            "--device", "cuda:0", "--dist-backend", "gloo", *extra]), \
+            report, 0
+
+    def wait(self, *runs, timeout=600):
+        """Each run's rank reports (the dry run's: its output)."""
+        import pickle
+        deadline = time.monotonic() + timeout
+        rcs = {}
+        for name, proc, _, _ in runs:
+            try:
+                rcs[name] = proc.wait(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                rcs[name] = "timeout"
+        self.stop_all()
+        out = {}
+        for name, proc, report, world in runs:
+            if rcs[name] != 0:
+                with open(report + ".log") as f:
+                    print(f.read()[-6000:])
+                fail(f"phase {self.phase} run {name} ended with {rcs[name]}")
+            if not world:
+                with open(report + ".log") as f:
+                    out[name] = f.read()
+                continue
+            ranks = []
+            for r in range(world):
+                with open(f"{report}.{r}.pkl", "rb") as f:
+                    ranks.append(pickle.load(f))
+            out[name] = ranks
+        return out
+
+
+def logdir_state(d, lr_scenes):
+    """A logdir's module checkpoints and plane files as (params, adam):
+    {file:key: tree} of the decoders' and SR net's parameters and of
+    their optimizer states, and "planes:<scene>" for each LR scene's
+    planes and their Adam leaves."""
+    from nvsr_tpu_torch.planes_store import PlaneStore
+    from nvsr_tpu_torch.utils.io import load_pickle
+    params, adam = {}, {}
+    for f in sorted(os.listdir(d)):
+        if ".ckpt" in f:
+            c = load_pickle(os.path.join(d, f), suffix=f.split(".")[-1])
+            for k in ("model_coarse_state_dict", "model_fine_state_dict",
+                      "SR_model"):
+                if k in c:
+                    params[f + ":" + k] = c[k]
+            for k in ("optimizer", "SR_optimizer"):
+                if k in c:
+                    adam[f + ":" + k] = c[k]
+    for sc in lr_scenes:
+        planes, opt = PlaneStore([os.path.join(d, "planes")]).load(
+            sc, with_opt_state=True)
+        params["planes:" + sc] = [planes.planes_pos, planes.plane_view]
+        adam["planes:" + sc] = opt.leaves()
+    return params, adam
+
+
+def logdir_delta(states, n, ref, phase):
+    """Run n's logdir state against run ref's (logdir_state): the max
+    |delta| / leaf max by group (planes, SR, decoders), and whether every
+    parameter and Adam leaf is bit-equal. The two must hold the same
+    files, keys and leaf shapes (a full layout like ref's)."""
+    other, adam = states[n]
+    mine, mine_adam = states[ref]
+    if sorted(other) != sorted(mine) or sorted(adam) != sorted(mine_adam):
+        fail(f"phase {phase}: {n}'s logdir {sorted(other)}, {ref}'s "
+             f"{sorted(mine)}")
+    worst = {}
+    for k in mine:
+        if shapes(other[k]) != shapes(mine[k]):
+            fail(f"phase {phase}: {n}'s {k} has the leaf shapes "
+                 f"{shapes(other[k])}, {ref}'s {shapes(mine[k])}")
+        group = ("planes" if k.startswith("planes") else "SR"
+                 if "SR_model" in k else "decoders")
+        for a, b in zip(flat_leaves(other[k]), flat_leaves(mine[k])):
+            a, b = a.double(), b.double()
+            scale = max(float(b.abs().max()), 1e-30)
+            worst[group] = max(worst.get(group, 0.0),
+                               float((a - b).abs().max()) / scale)
+    if not all(shapes(adam[k]) == shapes(mine_adam[k]) for k in adam):
+        fail(f"phase {phase}: {n}'s Adam leaves are not {ref}'s shapes")
+    return worst, trees_equal(other, mine) and trees_equal(adam, mine_adam)
+
+
+def shapes(tree):
+    """The leaf shapes of a tree (sorted dict keys, list order)."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in shapes(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in shapes(v)]
+    return [tuple(np.shape(tree))]
 
 
 def dist_cfg(w, scene, logdir):
@@ -3103,12 +3384,9 @@ def dist_phase(dev, w=TRAIN_FULL, on_card=True, card="", iters=DIST_ITERS,
     also trains a second plain run and a second world of 1 alone and a
     second world of 2, and prints every reading against the plain run
     and each run's against its twin: the record behind DP_PARAM_BOUND."""
-    import pickle
     import tempfile
     import numpy as np
     from nvsr_tpu_torch.parallel.host_pool import scene_owner
-    from nvsr_tpu_torch.planes_store import PlaneStore
-    from nvsr_tpu_torch.utils.io import load_pickle
     from nvsr_tpu_torch.utils.png import imread as png_read
 
     t_phase = time.perf_counter()
@@ -3116,90 +3394,16 @@ def dist_phase(dev, w=TRAIN_FULL, on_card=True, card="", iters=DIST_ITERS,
     scene = "chair"
     lr_scene = f"{scene}_DS{2 * w['sr_scale']}_PlRes{w['res']}_" \
         f"{w['view_res']}"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT, os.environ.get("PYTHONPATH", "")]),
-        GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
-    if not on_card:
-        env["OMP_NUM_THREADS"] = "1"
-    device = [] if on_card else ["--device", "cpu"]
-    started = []
-
-    def stop_all():
-        """Stop every run still going, torchrun's workers with it."""
-        for proc in started:
-            if proc.poll() is None:
-                try:
-                    os.killpg(proc.pid, signal.SIGKILL)
-                except ProcessLookupError:
-                    pass
-                proc.wait()
 
     with tempfile.TemporaryDirectory() as root:
         write_synthetic_scene(os.path.join(root, "synt"), scene, w["image"])
-
-        def start(report, cmd):
-            # a session of its own: stopping it stops torchrun's workers
-            with open(report + ".log", "w") as log:
-                proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
-                                        stderr=subprocess.STDOUT,
-                                        start_new_session=True)
-            started.append(proc)
-            return proc
-
-        def launch(name, cfg_of, world=None, extra=()):
-            path = os.path.join(root, f"{cfg_of}.yml")
-            if not os.path.exists(path):
-                with open(path, "w") as f:
-                    f.write(dist_cfg(w, scene, f"logs/{cfg_of}").dump())
-            report = os.path.join(root, f"report_{name}")
-            cmd = [sys.executable]
-            if world:
-                cmd += ["-m", "torch.distributed.run", "--standalone",
-                        f"--nproc_per_node={world}"]
-            cmd += [os.path.join(ROOT, "chip_smoke.py"), "--cli", report,
-                    "--config", path, "--max-iters", str(iters), *device,
-                    *extra]
-            return name, start(report, cmd), report, world or 1
-
-        def launch_dryrun():
-            """The port's dry run on the card: two gloo ranks on cuda:0
-            against the world of 1 and a second world of 1."""
-            report = os.path.join(root, "report_dryrun")
-            return "dryrun", start(report, [
-                sys.executable, "-m", "nvsr_tpu_torch.parallel.dryrun", "2",
-                "--device", "cuda:0", "--dist-backend", "gloo"]), report, 0
-
-        def wait(*runs, timeout=600):
-            """Each run's rank reports (the dry run's: its output)."""
-            deadline = time.monotonic() + timeout
-            rcs = {}
-            for name, proc, _, _ in runs:
-                try:
-                    rcs[name] = proc.wait(
-                        timeout=max(deadline - time.monotonic(), 1))
-                except subprocess.TimeoutExpired:
-                    rcs[name] = "timeout"
-            stop_all()
-            out = {}
-            for name, proc, report, world in runs:
-                if rcs[name] != 0:
-                    with open(report + ".log") as f:
-                        print(f.read()[-6000:])
-                    fail(f"phase 11 run {name} ended with {rcs[name]}")
-                if not world:
-                    with open(report + ".log") as f:
-                        out[name] = f.read()
-                    continue
-                ranks = []
-                for r in range(world):
-                    with open(f"{report}.{r}.pkl", "rb") as f:
-                        ranks.append(pickle.load(f))
-                out[name] = ranks
-            return out
+        cli = CliRuns(root, on_card, iters, "11",
+                      lambda logdir: dist_cfg(w, scene, logdir))
+        launch, launch_dryrun, wait, stop_all = (
+            cli.launch, cli.launch_dryrun, cli.wait, cli.stop_all)
 
         try:
-            gloo2 = ["--dist-backend", "gloo"] + (["--device", "cuda:0"]
-                                                  if on_card else [])
+            gloo2 = cli.gloo
             # training: on the card, the plain run and the world of 1 alone,
             # one after the other (their iterations are timed), then a second
             # plain run (the run-to-run control) beside the world of 2 (a
@@ -3286,48 +3490,12 @@ def dist_phase(dev, w=TRAIN_FULL, on_card=True, card="", iters=DIST_ITERS,
             # the SR net hold gradients near 0 (down to 1e-26 at a small
             # width), whose relative deltas say nothing, so they are held
             # only bit for bit where the arithmetic is (a CPU world of 1)
-            def logdir_state(n):
-                d = os.path.join(root, "logs", n)
-                params, adam = {}, {}
-                for f in sorted(os.listdir(d)):
-                    if ".ckpt" in f:
-                        c = load_pickle(os.path.join(d, f),
-                                        suffix=f.split(".")[-1])
-                        for k in ("model_coarse_state_dict",
-                                  "model_fine_state_dict", "SR_model"):
-                            if k in c:
-                                params[f + ":" + k] = c[k]
-                        for k in ("optimizer", "SR_optimizer"):
-                            if k in c:
-                                adam[f + ":" + k] = c[k]
-                planes, opt = PlaneStore([os.path.join(d, "planes")]).load(
-                    lr_scene, with_opt_state=True)
-                params["planes"] = [planes.planes_pos, planes.plane_view]
-                adam["planes"] = opt.leaves()
-                return params, adam
-
-            states = {n: logdir_state(n) for n in trained}
-            base, base_adam = states["plain"]
+            states = {n: logdir_state(os.path.join(root, "logs", n),
+                                      [lr_scene]) for n in trained}
+            base = states["plain"][0]
 
             def param_delta(n, ref="plain"):
-                other, adam = states[n]
-                mine, mine_adam = states[ref]
-                if sorted(other) != sorted(base) or sorted(adam) != sorted(
-                        base_adam):
-                    fail(f"phase 11: {n}'s logdir {sorted(other)}, the plain "
-                         f"run's {sorted(base)}")
-                worst = {}
-                for k in mine:
-                    group = ("planes" if k == "planes" else "SR"
-                             if "SR_model" in k else "decoders")
-                    for a, b in zip(flat_leaves(other[k]),
-                                    flat_leaves(mine[k])):
-                        a, b = a.double(), b.double()
-                        scale = max(float(b.abs().max()), 1e-30)
-                        worst[group] = max(worst.get(group, 0.0), float(
-                            (a - b).abs().max()) / scale)
-                return worst, trees_equal(other, mine) and trees_equal(
-                    adam, mine_adam)
+                return logdir_delta(states, n, ref, "11")
 
             deltas = {n: param_delta(n) for n in trained if n != "plain"}
             print(f"[dist] logdir checkpoints and plane files {sorted(base)}: "
@@ -3467,6 +3635,331 @@ def dist_phase(dev, w=TRAIN_FULL, on_card=True, card="", iters=DIST_ITERS,
         finally:
             stop_all()
         print(f"[dist] phase in {time.perf_counter() - t_phase:.1f} s{on}")
+
+
+# phase 12: tensor parallelism and the device pool through the entry
+# point, as phase 11 drives data parallel
+TP_ITERS = 4
+# phase 12's cuts (PERF.md §4): the EDSR trunk 4 blocks deep (of 32) and
+# the synthetic scenes 400 pixels wide (eval views of 200^2 and 50^2
+# rays). Two gloo ranks on the one card move every split conv's output,
+# and every row layer's partial sums, through host memory; the widths
+# are phase 9's
+TP_W = dict(TRAIN_FULL, sr_blocks=4, image=400)
+POOL_SCENES = ("chair", "drums", "ficus", "hotdog")
+# JAX's bounds of a tensor-parallel run against the unsharded one
+# (tests/test_experiment_mesh.py:57-65)
+TP_LOSS_RTOL, TP_LOSS_ATOL = 2e-4, 1e-6
+TP_IMG_RTOL, TP_IMG_ATOL = 1e-3, 1e-4
+# the tensor-parallel run's parameters after TP_ITERS steps against the
+# plain run's: max |delta| / leaf max by group, ~3x the readings of five
+# calls (PERF.md §6, the table under TP_PARAM_BOUND), which were the
+# same in each: a row layer's partial sums add up in another order every
+# step, the same order each run; the backward's atomics add a run-to-run
+# spread of ~1e-7, which the second plain run prints. The faults
+# --controls plants read 30x and more above it (bf16_reduce: planes
+# 2.5e-2, decoders 1.3e-2)
+TP_PARAM_BOUND = {"planes": 8e-4, "decoders": 1.8e-4, "SR": 2e-7}
+# the faults phase 12's controls plant (plant_fault), by run name
+FAULTS = {"tp_drop": "drop_pair", "tp_bf16": "bf16_reduce"}
+
+
+def tp_cfg(w, logdir, scenes, model_parallel=1, pool=False):
+    """Phase 11's config (dist_cfg: the trainable route and the tiled
+    eval) on `scenes` in both of its groups, with
+    experiment.model_parallel or store_planes.device_pool."""
+    cfg = dist_cfg(w, scenes[0], logdir)
+    cfg.dataset["dir"]["train"] = {k: list(scenes)
+                                   for k in cfg.dataset["dir"]["train"]}
+    if model_parallel > 1:
+        cfg.experiment["model_parallel"] = model_parallel
+    if pool:
+        cfg.nerf.train.store_planes["device_pool"] = True
+    return cfg
+
+
+def tp_phase(dev, w=TP_W, on_card=True, card="", iters=TP_ITERS,
+             controls=False):
+    """Phase 12 (see the module docstring). Returns each run's kernel
+    launches per rank ({kernel: count}, the nonzero ones; every run, the
+    evals too). With on_card=False (a CPU
+    rehearsal at a small `w`) the ranks run on the CPU under gloo, the
+    dry run is left to tests/test_torch_parallel.py, and the pool is held
+    bit for bit to the replicated world of 2. controls=True also trains
+    a second tensor-parallel run and two with a fault planted
+    (plant_fault), prints their readings, and fails if a fault's lie
+    inside TP_PARAM_BOUND: the record behind the bound."""
+    import tempfile
+    import numpy as np
+    from nvsr_tpu_torch.parallel.host_pool import pool_homes
+
+    t_phase = time.perf_counter()
+    on = f" on {card}" if card else ""
+
+    def lr_id(sc):
+        return f"{sc}_DS{2 * w['sr_scale']}_PlRes{w['res']}_{w['view_res']}"
+
+    def make_cfg(logdir):
+        name = logdir.split("/")[-1]
+        pooled = name.startswith(("pool", "rep"))
+        return tp_cfg(w, logdir, POOL_SCENES if pooled else POOL_SCENES[:1],
+                      model_parallel=2 if name.startswith("tp") else 1,
+                      pool=name.startswith("pool"))
+
+    with tempfile.TemporaryDirectory() as root:
+        for sc in POOL_SCENES:
+            write_synthetic_scene(os.path.join(root, "synt"), sc, w["image"])
+        cli = CliRuns(root, on_card, iters, "12", make_cfg)
+        launch, gloo = cli.launch, cli.gloo
+        ev = ["--eval", "images", "--results_path"]
+        try:
+            # training: the plain run alone on the card (timed), then the
+            # tensor-parallel world of 2 beside a second plain run (the
+            # control) and the tensor-parallel dry run, then the pool
+            # beside the replicated world of 2; on the CPU all at once
+            # (a launch starts its run; each wait stops what it left)
+            def first():
+                return [launch("plain", "plain")]
+
+            def tp():
+                return [launch("tp", "tp", world=2, extra=gloo),
+                        launch("again", "again")] + ([
+                    launch("tp_b", "tp_b", world=2, extra=gloo),
+                    *[launch(f, f, world=2, extra=gloo, plant=plant)
+                      for f, plant in FAULTS.items()]] if controls else [])
+
+            def pool():
+                return [launch("pool", "pool", world=2, extra=gloo),
+                        launch("rep", "rep", world=2, extra=gloo)]
+
+            if on_card:
+                runs = cli.wait(*first())
+                runs.update(cli.wait(*tp(), cli.launch_dryrun(
+                    ["--model-parallel", "2"])))
+                runs.update(cli.wait(*pool()))
+            else:
+                runs = cli.wait(*first(), *tp(), *pool())
+            dry_log = runs.pop("dryrun", None)
+            trained = [n for n in ("plain", "again", "tp", "tp_b", "pool",
+                                   "rep") if n in runs]
+            faults = [n for n in FAULTS if n in runs]
+            # eval: --eval images of the tensor-parallel logdir by a world
+            # of 2 (model_parallel from the logdir's config) and by one
+            # process; of the pool's likewise
+            runs.update(cli.wait(
+                launch("own_tp", "tp", world=2, extra=ev + ["res_tp2"] + gloo),
+                launch("one_tp", "tp", extra=ev + ["res_tp1"]),
+                launch("own_pool", "pool", world=2,
+                       extra=ev + ["res_pool2"] + gloo),
+                launch("one_pool", "pool", extra=ev + ["res_pool1"])))
+            if dry_log is not None:
+                lines = [ln for ln in dry_log.splitlines()
+                         if ln.startswith("dryrun_multichip")]
+                print(f"[tp] {lines[-1] if lines else dry_log[-2000:]}{on}")
+
+            def scalars(name, key):
+                return np.array([v for n, _, v in runs[name][0]["scalars"]
+                                 if n == key])
+
+            def rel(a, b):
+                return float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                               1e-30)))
+
+            # check 1: losses and PSNRs, each rank's the same
+            loss = {n: scalars(n, "train/loss") for n in trained}
+            psnr = {n: scalars(n, "train/psnr") for n in trained}
+            for n in trained:
+                print(f"[tp] {n} losses {loss[n].tolist()}")
+                if len(loss[n]) != iters or not np.all(np.isfinite(loss[n])):
+                    fail(f"phase 12: {n}'s losses missing or non-finite")
+                if any([v for _, _, v in rep["scalars"]]
+                       != [v for _, _, v in runs[n][0]["scalars"]]
+                       for rep in runs[n]):
+                    fail(f"phase 12: the ranks of {n} logged apart")
+            print(f"[tp] loss max rel delta: tp vs plain "
+                  f"{rel(loss['tp'], loss['plain']):.3e}, again vs plain "
+                  f"{rel(loss['again'], loss['plain']):.3e}, pool vs rep "
+                  f"{rel(loss['pool'], loss['rep']):.3e}"
+                  + (f", tp_b vs tp {rel(loss['tp_b'], loss['tp']):.3e}"
+                     if "tp_b" in loss else ""))
+            for n in faults:
+                got = scalars(n, "train/loss")
+                print(f"[tp] {n} (fault planted: {FAULTS[n]}) losses "
+                      f"{got.tolist()}, max rel delta vs plain "
+                      f"{rel(got, loss['plain']):.3e}")
+            for n in [n for n in trained if n.startswith("tp")]:
+                if not (np.allclose(loss[n], loss["plain"], rtol=TP_LOSS_RTOL,
+                                    atol=TP_LOSS_ATOL)
+                        and np.allclose(psnr[n], psnr["plain"],
+                                        rtol=TP_LOSS_RTOL)):
+                    fail(f"phase 12 (a): {n}'s losses or PSNRs outside "
+                         f"JAX's tensor-parallel bounds")
+            if not (loss["pool"][0] == loss["rep"][0]
+                    and np.allclose(loss["pool"], loss["rep"],
+                                    rtol=DP_LOSS_RTOL, atol=DP_LOSS_ATOL)
+                    and np.allclose(psnr["pool"], psnr["rep"],
+                                    rtol=DP_PSNR_RTOL)):
+                fail("phase 12 (b): the pool's losses are not the replicated "
+                     "world's")
+            if not on_card and not (np.array_equal(loss["pool"], loss["rep"])
+                                    and np.array_equal(psnr["pool"],
+                                                       psnr["rep"])):
+                fail("phase 12 (b): on the CPU the pool is not bit-equal to "
+                     "the replicated world of 2")
+
+            # check 2: the logdirs, in the full layout: the tensor-parallel
+            # one against the plain one, the pool's against the replicated
+            states = {n: logdir_state(os.path.join(root, "logs", n), [
+                lr_id(sc) for sc in (POOL_SCENES if n in ("pool", "rep")
+                                     else POOL_SCENES[:1])])
+                for n in trained + faults}
+            deltas = {n: logdir_delta(states, n, ref, "12")
+                      for n, ref in (("tp", "plain"), ("again", "plain"),
+                                     ("tp_b", "tp"), ("pool", "rep"),
+                                     *((f, "plain") for f in faults))
+                      if n in states}
+            print(f"[tp] logdir parameters, max delta / leaf max by group, "
+                  f"and whether every parameter and Adam leaf is "
+                  f"bit-equal: tp vs plain {deltas['tp']}; again vs plain "
+                  f"(the control) {deltas['again']}; pool vs rep "
+                  f"{deltas['pool']}"
+                  + (f"; tp_b vs tp {deltas['tp_b']}" if "tp_b" in deltas
+                     else "")
+                  + "".join(f"; {f} (fault planted) vs plain {deltas[f]}"
+                            for f in faults))
+            if on_card:
+                print(f"[tp] held within {TP_PARAM_BOUND} (tp), "
+                      f"{DP_PARAM_BOUND} (pool)")
+                for n, bound in (("tp", TP_PARAM_BOUND),
+                                 ("pool", DP_PARAM_BOUND)):
+                    if any(v > bound[g] for g, v in deltas[n][0].items()):
+                        fail(f"phase 12: {n}'s parameters outside {bound}")
+                for f in faults:
+                    if not any(v > TP_PARAM_BOUND[g]
+                               for g, v in deltas[f][0].items()):
+                        fail(f"phase 12 controls: the planted fault {f} "
+                             f"lies inside {TP_PARAM_BOUND}")
+            elif not deltas["pool"][1]:
+                fail("phase 12 (b): on the CPU the pool's logdir is not the "
+                     "replicated world's")
+
+            # check 3: the evals of one logdir by a world of 2 and by one
+            # process
+            for n, ref, rtol, atol in (
+                    ("own_tp", "one_tp", TP_IMG_RTOL, TP_IMG_ATOL),
+                    ("own_pool", "one_pool", DP_IMG_RTOL, DP_IMG_ATOL)):
+                got, want = dict(runs[n][0]["renders"]), dict(
+                    runs[ref][0]["renders"])
+                if sorted(got) != sorted(want) or not want:
+                    fail(f"phase 12: {n} rendered {sorted(got)}, {ref} "
+                         f"{sorted(want)}")
+                worst = max(float(np.max(np.abs(got[k] - want[k])))
+                            for k in want)
+                print(f"[tp] --eval images {n} vs {ref}: {len(want)} "
+                      f"renders, max |rgb delta| {worst:.3e}")
+                if not all(np.allclose(got[k], want[k], rtol=rtol, atol=atol)
+                           for k in want):
+                    fail(f"phase 12: {n}'s eval outside rtol {rtol} / atol "
+                         f"{atol} of {ref}'s")
+
+            # check 4: what a tensor-parallel rank keeps: its split leaves
+            # are half of the full ones, the replicated ones (the heads, the
+            # row layers' biases) whole
+            full = runs["plain"][0]["modules"]
+            for rep in runs["tp"]:
+                mine = rep["modules"]
+                print(f"[tp] tp rank {rep['rank']} bytes (split, whole): "
+                      f"{mine}; plain {full}")
+                for k in ("decoders", "SR"):
+                    if 2 * mine[k][0] + mine[k][1] != sum(full[k]) or \
+                            mine[k][1] > 0.02 * sum(full[k]):
+                        fail(f"phase 12 (a): tp rank {rep['rank']} keeps "
+                             f"{mine[k]} bytes of {k}, not half of "
+                             f"{sum(full[k])}")
+                if [2 * a + b for a, b in mine["moments"]] != \
+                        [sum(m) for m in full["moments"]]:
+                    fail("phase 12 (a): the Adam moments are not in the "
+                         "parameters' layout")
+
+            # check 5: the pool: JAX's homes; each plane file written by its
+            # home only; between steps each rank keeps its home scenes'
+            # planes and moments, and nothing of the others
+            ids = [lr_id(sc) for sc in POOL_SCENES]
+            homes = pool_homes(ids, 2)
+            if homes != {s: i % 2 for i, s in enumerate(sorted(ids))}:
+                fail("phase 12 (b): pool_homes is not JAX's round robin")
+            for rep in runs["pool"] + runs["own_pool"]:
+                r = rep["rank"]
+                if rep["homes"] is not None and rep["homes"] != homes:
+                    fail(f"phase 12 (b): rank {r}'s homes {rep['homes']}")
+                bad = [s for s in rep["planes_written"] if homes[s] != r]
+                if bad:
+                    fail(f"phase 12 (b): rank {r} wrote {bad}")
+            for rep in runs["pool"]:
+                probes = [it["pool"] for it in rep["iters"]]
+                print(f"[tp] pool rank {rep['rank']}: home of "
+                      f"{sorted(s for s in homes if homes[s] == rep['rank'])}"
+                      f", wrote {sorted(set(rep['planes_written']))}; kept "
+                      f"between steps {[p['bytes'] for p in probes]} bytes "
+                      f"(its home scenes' planes and moments "
+                      f"{[p['home_bytes'] for p in probes]})")
+                if not rep["planes_written"] or any(
+                        p["bytes"] != p["home_bytes"] or p["foreign"]
+                        or p["lent"] or not p["bytes"] for p in probes):
+                    fail(f"phase 12 (b): pool rank {rep['rank']} kept "
+                         f"{probes}")
+
+            # check 6: launches per rank: the trainable sampler once per
+            # iteration, the full gather+decode entry twice per eval block
+            # of the rank's data index (tensor-parallel ranks render with
+            # the decoders gathered, pooled ones on the lent planes),
+            # nothing else
+            launches = {}
+            for n, reps in runs.items():
+                for rep in reps:
+                    want = {k: 0 for k in rep["launches"]}
+                    if n in trained or n in faults:
+                        want["plane_sample_fwd"] = want["plane_sample_bwd"] = \
+                            len(rep["iters"])
+                    want["triplane_render_full"] = rep["want_full"]
+                    launches.setdefault(n, []).append(
+                        {k: v for k, v in rep["launches"].items() if v})
+                    if on_card and (rep["launches"] != want
+                                    or not rep["want_full"]):
+                        fail(f"phase 12: {n} rank {rep['rank']} launched "
+                             f"{rep['launches']}, expected {want}")
+            print(f"[tp] launches per rank: {launches}")
+
+            # the numbers: iteration times, collectives, memory
+            def med(xs):
+                return statistics.median(xs) if xs else float("nan")
+
+            for n in trained:
+                rep = runs[n][0]
+                hr = [it["ms"] for it in rep["iters"] if it["sr"]]
+                lr = [it["ms"] for it in rep["iters"] if not it["sr"]]
+                print(f"[tp]{on}: {n} iteration ms (between two "
+                      f"synchronizes): HR/SR median {med(hr):.2f} of "
+                      f"{[round(x, 2) for x in hr]}; LR median {med(lr):.2f} "
+                      f"of {[round(x, 2) for x in lr]}; run "
+                      f"{rep['seconds']:.2f} s; peak memory by rank "
+                      f"{[rep_['peak_mib'] for rep_ in runs[n]]} MiB"
+                      + (" (two gloo ranks share the card: a correctness "
+                         "run)" if len(runs[n]) > 1 else ""))
+            for n in ("tp", "pool", "rep"):
+                for kind in (True, False):
+                    its = [it for it in runs[n][0]["iters"]
+                           if it["sr"] == kind]
+                    if its:
+                        print(f"[tp] {n} collectives of an "
+                              f"{'HR/SR' if kind else 'LR'} iteration "
+                              f"(rank 0): {its[-1]['collectives']}")
+            seconds = {n: round(r[0]["seconds"], 2) for n, r in runs.items()}
+            print(f"[tp] seconds in cli.main by run (rank 0){on}: {seconds}")
+        finally:
+            cli.stop_all()
+    print(f"[tp] phase in {time.perf_counter() - t_phase:.1f} s{on}")
+    return launches
 
 
 def flagship(dev):
@@ -3644,16 +4137,15 @@ def compare(roots):
               f"{r.stderr[-3000:]}", flush=True)
 
 
-def main(profile=False):
-    import numpy as np
+def card_setup():
+    """The card's name and power limit (nvidia-smi), printed with the
+    software; TF32 off; every kernel built. Returns (card, device)."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "GPU")
     sys.path.insert(0, ROOT)
     from nvsr_tpu_torch import kernels
-    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
-    from nvsr_tpu_torch.render import render_image
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3669,12 +4161,21 @@ def main(profile=False):
     # the flagship EDSR runs bf16, where TF32 does not apply
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     libs = kernels.build(verbose=True)
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    return card, torch.device("cuda", 0)
+
+
+def main(profile=False):
+    import numpy as np
+    import torch
+    card, dev = card_setup()
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
+    from nvsr_tpu_torch.render import render_image
 
     # -- flagship setup (bench.py's eval frame) -------------------------
     (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view, box, occ,
@@ -3784,6 +4285,15 @@ def main(profile=False):
     torch.cuda.empty_cache()
     dist_phase(dev, card=card)
 
+    # -- 12. tensor parallel and the device pool through the entry point -
+    torch.cuda.empty_cache()
+    tp_launches = tp_phase(dev, card=card)
+    for name in ("plane_sample_fwd", "plane_sample_bwd",
+                 "triplane_render_full"):
+        entries[name]["phase12_launches_per_rank"] = {
+            n: [ranks.get(name, 0) for ranks in reps]
+            for n, reps in tp_launches.items()}
+
     print(card)
     print(json.dumps({"kernels": [entries[name] for name in (
         "triplane_render_sigma_only", "triplane_render_full",
@@ -3804,6 +4314,10 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if argv[:1] == ["--cli"]:
         cli_rank(argv[1], argv[2:])
+    elif argv[:2] == ["--phase", "12"]:
+        card_name, device = card_setup()
+        tp_phase(device, card=card_name, controls="--controls" in argv)
+        print(card_name)
     elif argv[:1] == ["--times-of"]:
         times_of(argv[1])
     elif argv[:1] == ["--times"]:

@@ -21,10 +21,12 @@ training half; and the rest of what the JAX package does on one device:
 the Mip-NeRF / PE-NeRF baseline (`ops/encoding.py`,
 `models/nerf_mlp.py`, the mip render, `train.train_step_baseline`),
 reference-checkpoint conversion (`convert.py`), SRResNet and tiled EDSR;
-and data-parallel training and eval across ranks on torch.distributed
-(`parallel/`: the mesh, the row split, the bucketed reductions, the
-crc32 scene-owner plane pool, and a multi-rank dry run), which the
-Experiment and `cli.py` take under `experiment.data_parallel` and
-torchrun. Tensor parallelism (`experiment.model_parallel` > 1) and the
-device-resident scene pool (`store_planes.device_pool`) are not ported.
+and data- and tensor-parallel training and eval across ranks on
+torch.distributed (`parallel/`: the ('data', 'model') mesh, the row
+split, the bucketed reductions, the decoders' and the plane SR's
+tensor-parallel layouts with the model group's collectives in autograd,
+the crc32 scene-owner plane pool and the device-resident scene pool, and
+a multi-rank dry run), which the Experiment and `cli.py` take under
+`experiment.data_parallel`, `experiment.model_parallel`,
+`nerf.train.store_planes.device_pool` and torchrun.
 """

@@ -16,7 +16,9 @@ other wrote. The device is the card unless `--device` names another.
 (a Chrome trace), in place of the JAX package's jax.profiler trace.
 
 Under torchrun (RANK, WORLD_SIZE and LOCAL_RANK set) each process is one
-rank of a process group, for a config with `experiment.data_parallel`:
+rank of a process group, for a config with `experiment.data_parallel`
+(and, from the same YAML, `experiment.model_parallel` and
+`nerf.train.store_planes.device_pool`):
 
     torchrun --standalone --nproc_per_node=N -m nvsr_tpu_torch.cli \
         --config <yml> [--device cpu] [--dist-backend gloo]

@@ -54,9 +54,27 @@ Eval renders share their ray blocks (render.render_rays_chunked). Each
 scene's plane file is read and written by its owner rank only
 (parallel.host_pool), rank 0 alone writes checkpoints, logs, images and
 experiment_info, and the host's decisions (evaluate, save, stop,
-preemption) are rank 0's, broadcast. Not ported yet, raising
-NotImplementedError: `experiment.model_parallel` > 1 and
-`nerf.train.store_planes.device_pool`, ROADMAP Queue 1 #2 (b) and (c).
+preemption) are rank 0's, broadcast.
+
+With `experiment.model_parallel: M` the world is JAX's ('data',
+'model') mesh of W // M x M ranks: each rank keeps its model index's
+slices of the decoders, the SR net and their Adam moments
+(parallel.sharding's layouts; JAX `_place_params_on_mesh`), the ranks of
+one model group hold the same rows of the batch and run the model
+group's collectives inside the forward and backward
+(parallel/tensor.py), and the gradients are averaged over the data
+group. Checkpoints are written in the full layout (gathered over the
+model group), so a logdir moves between model_parallel 1, M and the JAX
+package; a full one is read and sliced. With
+`nerf.train.store_planes.device_pool` each scene's planes and Adam
+moments live on one home rank (JAX's round-robin over the sorted saved
+ids), which reads and writes its file and broadcasts the planes for each
+step and eval (planes_store.PlanesBuffer.lend). Evals under either
+keep the eval kernels (JAX sends them to its reference path): a
+tensor-parallel rank gathers the decoders once an evaluate pass, a
+pooled one renders the lent planes; training keeps the trainable
+route. A world of 1 ignores both keys, as JAX's one device
+does.
 """
 
 from __future__ import annotations
@@ -89,10 +107,14 @@ from nvsr_tpu_torch.ops.occupancy import estimate_occupied_box
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr, ssim
 from nvsr_tpu_torch.ops.resize import image_inconsistency_loss
-from nvsr_tpu_torch.parallel.host_pool import HostPartition
+from nvsr_tpu_torch.parallel.host_pool import HostPartition, pool_homes
 from nvsr_tpu_torch.parallel.sharding import (agree, broadcast_object,
-                                              data_sharding, make_mesh,
-                                              replicate, shard_rays)
+                                              data_sharding,
+                                              decoder_tp_shardings,
+                                              gather_tree, make_mesh,
+                                              plane_sr_tp_shardings,
+                                              replicate, shard_rays,
+                                              shard_tree, tensor_parallel)
 from nvsr_tpu_torch.planes_store import (PlaneStore, PlanesBuffer,
                                          create_scene_planes,
                                          decoder_tied_init_std,
@@ -162,6 +184,10 @@ class Experiment:
         self.root_path = root_path
         self.device = torch.device(device)
         self.mesh = self._build_mesh()
+        # the tensor-parallel mesh the models' functions take, and the
+        # layouts of their slices (set by _place_params_on_mesh)
+        self._tp = None
+        self._layouts = {}
         # rank 0 alone writes the logdir's files, logs and images
         self.is_main = self.mesh is None or self.mesh.rank == 0
         experiment_id = cfg.experiment.get(
@@ -429,7 +455,7 @@ class Experiment:
                 for k in ("mean", "std"):
                     self.sr_params["norm"][k].copy_(torch.as_tensor(
                         stats[k], dtype=torch.float32))
-        self._replicate_params()
+        self._place_params_on_mesh()
 
         # --- samplers / logging / experiment info ------------------------
         self.image_sampler = ImageSampler(self.i_train, ds.scene_probs,
@@ -481,13 +507,16 @@ class Experiment:
         return out
 
     def _build_mesh(self):
-        """The data-parallel mesh (JAX `_build_mesh`): with
+        """The ('data', 'model') mesh (JAX `_build_mesh`): with
         `experiment.data_parallel` (true: the whole world; N: must be the
-        world size) under an initialized process group, a mesh over it --
-        even a world of 1, whose collectives then run on one rank; else
-        None (as JAX without more than one device). A world of more than
-        one rank needs data_parallel: each rank would otherwise train the
-        same logdir on its own."""
+        world size) under an initialized process group, a mesh over it
+        with `experiment.model_parallel` (default 1; it must divide the
+        world) -- even a world of 1, whose collectives then run on one
+        rank, and which ignores model_parallel and
+        store_planes.device_pool as JAX's one device does; else None (as
+        JAX without more than one device). A world of more than one rank
+        needs data_parallel: each rank would otherwise train the same
+        logdir on its own."""
         cfg = self.cfg
         dp = cfg.experiment.get("data_parallel", False)
         live = dist.is_available() and dist.is_initialized()
@@ -497,14 +526,6 @@ class Experiment:
                 raise ValueError(f"a world of {world} ranks needs "
                                  f"experiment.data_parallel")
             return None
-        if int(cfg.experiment.get("model_parallel", 1)) > 1:
-            raise NotImplementedError(
-                "experiment.model_parallel > 1 (tensor parallelism) is not "
-                "ported yet: ROADMAP Queue 1 #2 (b)")
-        if cfg.get_path("nerf.train.store_planes.device_pool", False):
-            raise NotImplementedError(
-                "nerf.train.store_planes.device_pool is not ported yet: "
-                "ROADMAP Queue 1 #2 (c)")
         n = world if dp is True else int(dp)
         if n > world:
             raise ValueError(f"experiment.data_parallel={n} exceeds the "
@@ -512,12 +533,26 @@ class Experiment:
         if n != world:
             raise ValueError(f"experiment.data_parallel={n} in a world of "
                              f"{world} ranks: a mesh spans the world")
-        return make_mesh(n, device=self.device) if live else None
+        if not live:
+            return None
+        mp = int(cfg.experiment.get("model_parallel", 1)) if n > 1 else 1
+        return make_mesh(n, model_parallel=mp, device=self.device)
 
-    def _replicate_params(self):
-        """Rank 0's module parameters and optimizer moments on every rank,
-        in place (JAX `_place_params_on_mesh`, replicated): the ranks
-        start from the same state whatever each one loaded or drew."""
+    def _device_pool(self) -> bool:
+        """store_planes.device_pool on a mesh of more than one rank."""
+        return bool(self.mesh is not None and self.mesh.world > 1
+                    and self.cfg.get_path(
+                        "nerf.train.store_planes.device_pool", False))
+
+    def _place_params_on_mesh(self):
+        """Rank 0's module parameters and optimizer moments on every rank
+        (JAX `_place_params_on_mesh`): broadcast in place, so the ranks
+        start from the same state whatever each one loaded or drew; under
+        model_parallel > 1 each rank then keeps its slices of the
+        decoders and the SR net (decoder_tp_shardings,
+        plane_sr_tp_shardings), and its optimizers are rebuilt over them
+        with the Adam moments in the parameters' layout (JAX's
+        place_state). The baseline's MLPs stay replicated, as in JAX."""
         if self.mesh is None:
             return
         tree = [self.decoder_coarse, self.decoder_fine, self.sr_params]
@@ -526,6 +561,66 @@ class Experiment:
                 tree.append([[st["exp_avg"], st["exp_avg_sq"]]
                              for st in opt.opt.state.values()])
         replicate(self.mesh, tree)
+        if not (tensor_parallel(self.mesh) and self.planes_model):
+            return
+        mesh = self._tp = self.mesh
+        lay = self._layouts["decoder"] = decoder_tp_shardings(
+            self.decoder_coarse, mesh)
+        self.decoder_coarse = shard_tree(self.decoder_coarse, lay, mesh)
+        if self.decoder_fine is not None:
+            self.decoder_fine = shard_tree(self.decoder_fine, lay, mesh)
+        if self.sr_params is not None:
+            self._layouts["SR"] = plane_sr_tp_shardings(self.sr_params,
+                                                        mesh)
+            self.sr_params = shard_tree(self.sr_params, self._layouts["SR"],
+                                        mesh)
+        if self.decoder_opt is not None:
+            self.decoder_opt = self._sharded_opt(
+                self.decoder_opt, self._decoder_opt_params())
+        if self.sr_opt is not None:
+            self.sr_opt = self._sharded_opt(self.sr_opt, self.sr_params)
+
+    def _decoder_opt_params(self) -> dict:
+        params = {"dc": self.decoder_coarse}
+        if not self.share_coarse_fine and self.decoder_fine is not None:
+            params["df"] = self.decoder_fine
+        return params
+
+    def _opt_layout(self, opt):
+        """The layout of an optimizer's parameter tree."""
+        if opt is self.sr_opt:
+            return self._layouts["SR"]
+        return {k: self._layouts["decoder"] for k in opt.params}
+
+    def _sharded_opt(self, opt, params):
+        """A ModuleOptimizer over the sharded `params`, with `opt`'s Adam
+        state (when it has one) sliced to their layout."""
+        new = ModuleOptimizer(params, lr=opt.lr)
+        if opt.opt.state:
+            adam, empty = opt.state
+            lay = self._opt_layout(opt)
+            new.state = (adam._replace(mu=shard_tree(adam.mu, lay, self.mesh),
+                                       nu=shard_tree(adam.nu, lay,
+                                                     self.mesh)), empty)
+        return new
+
+    def _full(self, kind: str, tree):
+        """A module's parameter tree in the full layout: gathered over the
+        model group under tensor parallelism (collective), else as it
+        is."""
+        if self._tp is None or tree is None:
+            return tree
+        return gather_tree(tree, self._layouts[kind], self.mesh)
+
+    def _full_opt_state(self, opt):
+        """An optimizer's state in optax's layout with full moments."""
+        adam, empty = opt.state
+        if self._tp is None:
+            return adam, empty
+        lay = self._opt_layout(opt)
+        return (adam._replace(mu=gather_tree(adam.mu, lay, self.mesh),
+                              nu=gather_tree(adam.nu, lay, self.mesh)),
+                empty)
 
     def _build_models(self):
         cfg = self.cfg
@@ -643,23 +738,26 @@ class Experiment:
     def _decoder_state(self):
         to_jax = bridge.decoder_to_jax if self.planes_model \
             else bridge.nerf_mlp_to_jax
-        state = {"model_coarse_state_dict": to_jax(self.decoder_coarse)}
+        state = {"model_coarse_state_dict": to_jax(
+            self._full("decoder", self.decoder_coarse))}
         if self.decoder_fine is not None:
-            state["model_fine_state_dict"] = to_jax(self.decoder_fine)
+            state["model_fine_state_dict"] = to_jax(
+                self._full("decoder", self.decoder_fine))
         if self.planes_model:
             state["rot_mats"] = np.asarray(self.rot_mats)
             state["models_config"] = self.cfg.get("models",
                                                   CfgNode()).to_dict()
         if self.decoder_opt is not None:
             state["optimizer"] = bridge.optimizer_state_to_jax(
-                self.decoder_opt.state)
+                self._full_opt_state(self.decoder_opt))
         return state
 
     def _sr_state(self):
-        state = {"SR_model": bridge.plane_sr_to_jax(self.sr_params)}
+        state = {"SR_model": bridge.plane_sr_to_jax(
+            self._full("SR", self.sr_params))}
         if self.sr_opt is not None:
             state["SR_optimizer"] = bridge.optimizer_state_to_jax(
-                self.sr_opt.state)
+                self._full_opt_state(self.sr_opt))
         return state
 
     def _load_checkpoints(self):
@@ -723,10 +821,8 @@ class Experiment:
                 raise ValueError(f"{path}: its plane bases are not "
                                  f"make_rot_mats({self.model_cfg.num_planes})")
         if self.decoder_opt is not None:
-            params = {"dc": self.decoder_coarse}
-            if not self.share_coarse_fine and self.decoder_fine is not None:
-                params["df"] = self.decoder_fine
-            self.decoder_opt = ModuleOptimizer(params, lr=self.decoder_opt.lr)
+            self.decoder_opt = ModuleOptimizer(self._decoder_opt_params(),
+                                               lr=self.decoder_opt.lr)
             if "optimizer" in ckpt:
                 # a state of another structure (e.g. a checkpoint without
                 # the fine decoder's) is not restored, as in JAX
@@ -739,15 +835,21 @@ class Experiment:
         """Rolling checkpoints (the last one of each model kept), the best
         ones with as_best, and exp_info.pkl; the run's signature is
         checked first, so a newer run on the same logdir stops this one
-        here. Under a mesh only rank 0 writes them."""
+        here. Under a mesh only rank 0 writes them, in the full layout:
+        under tensor parallelism every rank first joins the gathers of
+        the slices."""
+        states = {}
+        if self.is_main or self._tp is not None:
+            states = {m: self._sr_state() if m == "SR"
+                      else self._decoder_state()
+                      for m in self._models_to_save()}
         if not self.is_main:
             return
         check_run_signature(self.logdir, self.run_time_signature)
         self.experiment_info["running_scores"] = self.running.state_dict()
         for model in self._models_to_save():
             prefix = "SR_checkpoint" if model == "SR" else "checkpoint"
-            state = self._sr_state() if model == "SR" \
-                else self._decoder_state()
+            state = states[model]
             name = os.path.join(self.logdir,
                                 f"{prefix}{iteration:05d}.ckpt")
             save_pickle(name, state, suffix="ckpt")
@@ -791,12 +893,21 @@ class Experiment:
                                          if self.is_main else 0))
         # scene ownership over the ranks: only a scene's owner reads and
         # writes its plane file (JAX's Experiment never needs one: its
-        # single controller writes each scene once)
+        # single controller writes each scene once); under the device
+        # pool the owner is the scene's home, JAX's round-robin placement
+        # over the sorted saved ids (then those of every other scene)
         self.host_partition = None
         if self.mesh is not None and self.mesh.world > 1:
-            self.host_partition = HostPartition(sorted({
-                self.scene_coupler.scene2saved.get(s, s)
-                for s in (self.training_scenes or list(self.i_val))}))
+            def saved_of(scenes):
+                return sorted({self.scene_coupler.scene2saved.get(s, s)
+                               for s in scenes})
+
+            saved_ids = saved_of(self.training_scenes or list(self.i_val))
+            owners = None
+            if self._device_pool():
+                owners = pool_homes(saved_ids, self.mesh.world, extra=saved_of(
+                    [*self.i_val, *self.scene_id_plane_resolution]))
+            self.host_partition = HostPartition(saved_ids, owners=owners)
         optimize_planes = (any("planes" in m for m in self.what2train)
                            and not self.eval_mode)
 
@@ -860,7 +971,8 @@ class Experiment:
             do_when_reshuffling=lambda: self.scenes_cycle_counter.step(
                 print_str="Number of scene cycles performed: "),
             rng=self.host_rng, device=self.device,
-            host_partition=self.host_partition, mesh=self.mesh)
+            host_partition=self.host_partition, mesh=self.mesh,
+            device_pool=self._device_pool())
 
     # ------------------------------------------------------------------
     # rendering helpers
@@ -902,13 +1014,13 @@ class Experiment:
         pos = materialize_pos_planes(planes.planes_pos, planes.rank)
         fine_planes = coarse_planes = pos
         if sr_scene:
-            hr = apply_plane_sr(self.sr_params, self.sr_cfg, pos)
+            hr = apply_plane_sr(self.sr_params, self.sr_cfg, pos,
+                                mesh=self._tp)
             fine_planes = hr
             if getattr(self, "apply_sr_to_coarse", False):
                 coarse_planes = hr
-        dc = self.decoder_coarse
-        df = dc if self.share_coarse_fine else self.decoder_fine
         tile_cfg = self.eval_tile_cfg(scene_id) if tiled else None
+        dc, df, mesh = self._eval_decoders(kernels=tile_cfg is not None)
         model_cfg = self.model_cfg
         if tile_cfg is not None and model_cfg.compute_dtype is None:
             # the documented bf16 substitution of the JAX package: the
@@ -921,11 +1033,33 @@ class Experiment:
         tile_rays = None if tile_cfg is None else tile_cfg.tile_rays
         pf_c = make_triplane_point_fn(dc, model_cfg, coarse_planes,
                                       planes.plane_view, planes.box,
-                                      tile_rays=tile_rays)
+                                      tile_rays=tile_rays, mesh=mesh)
         pf_f = make_triplane_point_fn(df, model_cfg, fine_planes,
                                       planes.plane_view, planes.box,
-                                      tile_rays=tile_rays)
+                                      tile_rays=tile_rays, mesh=mesh)
         return pf_c, pf_f
+
+    def _eval_decoders(self, kernels: bool):
+        """(coarse, fine, mesh) of an eval's point fns. The reference path
+        computes on this rank's decoder slices with the model group's
+        collectives (mesh: the tensor-parallel mesh, or None). The
+        kernels take whole decoders: under tensor parallelism they are
+        gathered over the model group (collective; every rank builds the
+        same point fns in one order) once per evaluate pass, and the
+        point fns then run no collective."""
+        dc = self.decoder_coarse
+        df = dc if self.share_coarse_fine else self.decoder_fine
+        if self._tp is None or not kernels:
+            return dc, df, self._tp
+        cache = getattr(self, "_eval_pf_cache", None)
+        if cache is not None and "decoders" in cache:
+            return cache["decoders"]
+        full = self._full("decoder", dc)
+        result = (full, full if self.share_coarse_fine
+                  else self._full("decoder", df), None)
+        if cache is not None:
+            cache["decoders"] = result
+        return result
 
     def eval_tile_shape(self):
         """(th, tw) image-tile shape of tiled eval renders
@@ -949,10 +1083,11 @@ class Experiment:
         (bilinear planes, <= 64 channels, a batch of whole tiles), else
         None. The coarse pass's plane gathers then run the trainable
         plane sampler's kernels in both directions. Under a mesh each
-        rank's rows must be whole tiles. (JAX refuses any mesh here: GSPMD
-        cannot partition its Pallas kernel. Each rank of the port runs
-        the kernels on its own rows, so only the split must keep tiles
-        whole, as JAX's eval gate asks of a ray block.)"""
+        data index's rows must be whole tiles. (JAX refuses any mesh
+        here: GSPMD cannot partition its Pallas kernel. Each rank of the
+        port runs the kernels on its own rows, on planes replicated over
+        the model axis, so only the split must keep tiles whole, as JAX's
+        eval gate asks of a ray block.)"""
         if (not self.planes_model
                 or not self.cfg.get_path("nerf.train.tiled_gather", False)):
             return None
@@ -960,7 +1095,7 @@ class Experiment:
                 or self.model_cfg.num_plane_channels > HALF):
             return None
         th, tw = self.train_tile_shape()
-        ranks = 1 if self.mesh is None else self.mesh.world
+        ranks = 1 if self.mesh is None else self.mesh.data_size
         if num_rays % (ranks * th * tw):
             return None
         return TileSamplerConfig(tile_rays=th * tw)
@@ -970,8 +1105,14 @@ class Experiment:
         qualifies (bilinear or bicubic planes, <= 64 plane channels, a
         ray block of whole tiles), else None. On by default where the
         kernels run (a CUDA device); nerf.validation.tiled_gather
-        overrides that either way. Under a mesh, JAX's gate: deterministic
-        sampling, and a ray block of whole tiles for every rank."""
+        overrides that either way. Under a mesh, JAX's gate without its
+        refusal of the model axis and the device pool: deterministic
+        sampling, and a ray block of whole tiles for every data index.
+        (JAX sends tensor-parallel and pooled evals to the reference path
+        because its mesh-sharded tiled render needs replicated parameters
+        and planes; a port rank holds a pooled scene's planes whole once
+        they are lent, and its kernels take the decoders gathered once a
+        pass: _eval_decoders.)"""
         enabled = self.cfg.get_path("nerf.validation.tiled_gather", None)
         if enabled is None:
             enabled = self.device.type == "cuda"
@@ -987,7 +1128,7 @@ class Experiment:
             return None
         if self.mesh is not None and (
                 rcfg.perturb or rcfg.radiance_field_noise_std != 0.0
-                or rcfg.ray_block % (self.mesh.world * tc.tile_rays)):
+                or rcfg.ray_block % (self.mesh.data_size * tc.tile_rays)):
             return None
         return tc
 
@@ -1126,11 +1267,11 @@ class Experiment:
         if occ["mode"] == "surface":
             self._commit_surface_aabb(scene_id, occ)
             return
-        planes = self.planes_buffer.get(scene_id)
+        planes = self.planes_buffer.lend(scene_id)
         pos = materialize_pos_planes(planes.planes_pos, planes.rank)
         box = self._on_device("box", scene_id, planes.box)
         density = make_density_fn(self.decoder_coarse, self.model_cfg, pos,
-                                  box)
+                                  box, mesh=self._tp)
         thr = occ["threshold"]
         if thr in (None, "auto"):
             # alpha = 1 - exp(-sigma*dt) > alpha_eps  =>  sigma > eps/dt
@@ -1250,7 +1391,7 @@ class Experiment:
         if self.planes_model:
             member = int(self.host_rng.integers(self.model_cfg.ensemble_size))
             self._maybe_update_occupancy(scene_id, iteration)
-            planes = self.planes_buffer.get(scene_id)
+            planes = self.planes_buffer.lend(scene_id)
             occ_aabb = self._occ_aabb_for(scene_id, planes)
             if occ_aabb is not None:
                 rays = tighten_bundle(
@@ -1293,7 +1434,7 @@ class Experiment:
                 planes.params(), self._on_device("box", scene_id, planes.box),
                 rays, target, generator,
                 model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
-                flags=flags)
+                flags=flags, mesh=self._tp)
             metrics, grads = reduce_step(self.mesh, metrics, grads)
             if flags.track_surface_aabb:
                 # device tensors, fetched in one copy at the commit
@@ -1347,7 +1488,8 @@ class Experiment:
         return new_drawn
 
     def _shard_batch(self, rays, target, generator):
-        """This rank's rows of the global batch (JAX's sharded batch):
+        """This rank's rows of the global batch (JAX's sharded batch; the
+        rows of its data index):
         the rays and the target split contiguously, and a generator that
         draws the global batch's numbers and keeps the rank's rows. On a
         consistency iteration each target pixel owns its ds^2
@@ -1559,6 +1701,9 @@ class Experiment:
                                              write_index)
                     self.saved_target_ims[group].add(iteration)
                 all_losses[group] = g["loss"]
+        # the pass's point fns (and under the device pool the planes they
+        # hold) go with it
+        self._eval_pf_cache = None
         return all_losses
 
     # ------------------------------------------------------------------

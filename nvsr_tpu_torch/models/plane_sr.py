@@ -19,6 +19,17 @@ or k^2 shifted matmuls) picks how XLA:TPU lowers the same convolution,
 to get around its batch-1 conv lowering; it does not change the
 function. On the card cuDNN picks the algorithm, so the port has no
 such field.
+
+Under a tensor-parallel mesh (`mesh=`, model_parallel > 1, the
+parameters in parallel.sharding.plane_sr_tp_shardings' slices: every
+conv's output channels split over the model group) each conv computes
+its block of output channels from the replicated input, and the blocks
+are gathered before the next conv, the residual add and the
+normalizations (parallel/tensor.py). The x2 pixel shuffle maps channel
+c*4 + k to channel c, so an upscale conv's block (4 * hidden / M
+channels: a multiple of 4, since the input conv's hidden channels split
+over M) stays contiguous through it: it is shuffled first and gathered
+after.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nvsr_tpu_torch.ops.resize import upsample_plane
+from nvsr_tpu_torch.parallel.sharding import tensor_parallel
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -251,41 +263,72 @@ def _conv(p, x, compute_dtype=None, padding: int = 0):
     return y
 
 
-def _edsr_blocks(blocks, h, cd):
+def _split_conv(p, x, mesh, compute_dtype=None, padding: int = 0,
+                gather: bool = True):
+    """_conv of a replicated x; under a tensor-parallel mesh with p's
+    output channels split, this rank's block of them, gathered unless
+    gather=False (the block alone)."""
+    if not tensor_parallel(mesh):
+        return _conv(p, x, compute_dtype, padding)
+    from nvsr_tpu_torch.parallel.tensor import (copy_to_model,
+                                                gather_from_model)
+    y = _conv(p, copy_to_model(x, mesh), compute_dtype, padding)
+    return gather_from_model(y, mesh, 1) if gather else y
+
+
+def _shuffle(p, h, mesh, compute_dtype=None, padding: int = 0):
+    """pixel_shuffle(conv(h), 2) of an upscale conv (see the module
+    docstring for the split form)."""
+    if not tensor_parallel(mesh):
+        return F.pixel_shuffle(_conv(p, h, compute_dtype, padding), 2)
+    from nvsr_tpu_torch.parallel.tensor import gather_from_model
+    y = _split_conv(p, h, mesh, compute_dtype, padding, gather=False)
+    return gather_from_model(F.pixel_shuffle(y, 2), mesh, 1)
+
+
+def _residual_scale(dtype) -> float:
+    """0.1 rounded to the activation dtype (bf16(0.1) = 0.10009765625
+    for a bf16 trunk, as JAX rounds the weakly typed constant), as a
+    Python number: a tensor scalar would be copied to the device at
+    every block."""
+    return float(torch.tensor(0.1, dtype=dtype))
+
+
+def _edsr_blocks(blocks, h, cd, mesh=None):
     for blk in blocks:
         k_sz = blk["conv1"]["w"].shape[-1]
         m = 2 * (k_sz // 2)
         identity = h if m == 0 else h[:, :, m:-m, m:-m]
-        y = _conv(blk["conv2"], torch.relu(_conv(blk["conv1"], h, cd)), cd)
-        # 0.1 in the activation dtype (bf16(0.1) for a bf16 trunk, as
-        # JAX rounds the weakly typed constant)
-        h = identity + h.new_tensor(0.1) * y
+        y = _split_conv(blk["conv2"], torch.relu(
+            _split_conv(blk["conv1"], h, mesh, cd)), mesh, cd)
+        h = identity + _residual_scale(h.dtype) * y
     return h
 
 
-def apply_edsr(params, cfg: PlaneSRConfig, x):
+def apply_edsr(params, cfg: PlaneSRConfig, x, mesh=None):
     """[N, C, H, W] (pre-padded) -> [N, C, H', W'] VALID-conv EDSR:
     residual blocks crop their identity path by the VALID margin and
     scale the residual by 0.1; PixelShuffle upscaling ends the trunk.
     With cfg.remat and gradients recorded, each segment of
-    cfg.remat_every blocks is recomputed in the backward."""
+    cfg.remat_every blocks is recomputed in the backward. mesh: see the
+    module docstring."""
     cd = cfg.compute_dtype
-    h = _conv(params["conv_input"], x, cd)
+    h = _split_conv(params["conv_input"], x, mesh, cd)
     blocks = params["blocks"]
     if cfg.remat and torch.is_grad_enabled():
         seg = max(1, cfg.remat_every)
         for i in range(0, len(blocks), seg):
-            h = checkpoint(_edsr_blocks, blocks[i:i + seg], h, cd,
+            h = checkpoint(_edsr_blocks, blocks[i:i + seg], h, cd, mesh,
                            use_reentrant=False)
     else:
-        h = _edsr_blocks(blocks, h, cd)
-    h = _conv(params["conv_mid"], h, cd)
+        h = _edsr_blocks(blocks, h, cd, mesh)
+    h = _split_conv(params["conv_mid"], h, mesh, cd)
     for up in params["upscale"]:
-        h = F.pixel_shuffle(_conv(up, h, cd), 2)
-    return _conv(params["conv_output"], h, cd)
+        h = _shuffle(up, h, mesh, cd)
+    return _split_conv(params["conv_output"], h, mesh, cd)
 
 
-def apply_edsr_tiled(params, cfg: PlaneSRConfig, x, orig_hw):
+def apply_edsr_tiled(params, cfg: PlaneSRConfig, x, orig_hw, mesh=None):
     """EDSR over a pre-padded plane batch in tiles: x [N, C, H + 2P,
     W + 2P] (P = required_padding, the full-plane path's replicate pad),
     orig_hw (H, W) -> [N, C, sH, sW], the full-plane result cropped by
@@ -295,7 +338,8 @@ def apply_edsr_tiled(params, cfg: PlaneSRConfig, x, orig_hw):
     the plane (those values reach no HR pixel inside [0, sH) x [0, sW));
     each tile of T LR pixels with its P halo maps to sT + 2 *
     hr_overpadding HR pixels, cropped to its sT. One tile (of every
-    plane) runs at a time, so peak memory is O(T^2)."""
+    plane) runs at a time, so peak memory is O(T^2). mesh: see the
+    module docstring."""
     h, w = orig_hw
     pad, over, s = cfg.required_padding, cfg.hr_overpadding, cfg.scale_factor
     t = int(cfg.tile_size)
@@ -309,7 +353,7 @@ def apply_edsr_tiled(params, cfg: PlaneSRConfig, x, orig_hw):
         row = []
         for j in range(ntw):
             y = apply_edsr(params, cfg, x[:, :, i * t:i * t + t + 2 * pad,
-                                          j * t:j * t + t + 2 * pad])
+                                          j * t:j * t + t + 2 * pad], mesh)
             if over > 0:
                 y = y[..., over:-over, over:-over]
             row.append(y)
@@ -336,33 +380,36 @@ def _prelu(p, x):
     return torch.where(x >= 0, x, p * x)
 
 
-def apply_srresnet(params, cfg: PlaneSRConfig, x, train: bool = False):
+def apply_srresnet(params, cfg: PlaneSRConfig, x, train: bool = False,
+                   mesh=None):
     """[N, C, H, W] -> [N, C, sH, sW]: the SRGAN generator with SAME
     padding throughout (required_padding 0), in f32. train: BatchNorm
-    takes the batch's statistics."""
-    h1 = _prelu(params["prelu1"], _conv(params["conv1"], x, padding=4))
+    takes the batch's statistics. mesh: see the module docstring."""
+    def conv(p, h, padding):
+        return _split_conv(p, h, mesh, padding=padding)
+
+    h1 = _prelu(params["prelu1"], conv(params["conv1"], x, 4))
     h = h1
     for blk in params["blocks"]:
-        y = _conv(blk["conv1"], h, padding=1)
+        y = conv(blk["conv1"], h, 1)
         if "bn1" in blk:
             y = _bn(blk["bn1"], y, train)
-        y = _conv(blk["conv2"], _prelu(blk["prelu"], y), padding=1)
+        y = conv(blk["conv2"], _prelu(blk["prelu"], y), 1)
         if "bn2" in blk:
             y = _bn(blk["bn2"], y, train)
         h = h + y
-    h2 = _conv(params["conv2"], h, padding=1)
+    h2 = conv(params["conv2"], h, 1)
     if "bn2" in params:
         h2 = _bn(params["bn2"], h2, train)
     h = h1 + h2
     for up in params["upscale"]:
-        h = _prelu(up["prelu"],
-                   F.pixel_shuffle(_conv(up["conv"], h, padding=1), 2))
-    return _conv(params["conv3"], h, padding=4)
+        h = _prelu(up["prelu"], _shuffle(up["conv"], h, mesh, padding=1))
+    return conv(params["conv3"], h, 4)
 
 
 def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
                    train: bool = False,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, mesh=None):
     """Super-resolution of feature planes: [P, C, H, W] -> [P, C, sH, sW]
     = crop(EDSR(edge_pad(norm(planes + in_noise)))) + up(planes)
     (+ out_noise), `up` the cfg.plane_interp resize (bilinear or
@@ -372,7 +419,9 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
     unless cfg.train_batch. SRResNet runs all planes as one batch (its
     BatchNorm takes their statistics in training). With train and a
     generator, sr_input_noise (std relative to the planes' std) and
-    sr_output_noise (relative to the detached net output's) are added."""
+    sr_output_noise (relative to the detached net output's) are added.
+    mesh: a tensor-parallel mesh whose slices `params` holds (see the
+    module docstring)."""
     x = lr_planes
     noisy = train and generator is not None
     if noisy and cfg.sr_input_noise > 0:
@@ -388,16 +437,18 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
     if cfg.arch == "SRResNet":
         assert cfg.tile_size is None, \
             "tile_size is only supported for the EDSR (VALID-conv) arch"
-        diff = apply_srresnet(params["inner"], cfg, x, train=train)
+        diff = apply_srresnet(params["inner"], cfg, x, train=train,
+                              mesh=mesh)
     elif cfg.tile_size is not None:
         diff = apply_edsr_tiled(params["inner"], cfg, x,
-                                lr_planes.shape[-2:])
+                                lr_planes.shape[-2:], mesh)
     else:
         if train and not cfg.train_batch:
-            diff = torch.cat([apply_edsr(params["inner"], cfg, x[i:i + 1])
+            diff = torch.cat([apply_edsr(params["inner"], cfg, x[i:i + 1],
+                                         mesh)
                               for i in range(x.shape[0])])
         else:
-            diff = apply_edsr(params["inner"], cfg, x)
+            diff = apply_edsr(params["inner"], cfg, x, mesh)
         over = cfg.hr_overpadding
         if over > 0:
             diff = diff[..., over:-over, over:-over]

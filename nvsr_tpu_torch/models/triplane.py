@@ -221,14 +221,19 @@ def project_to_planes(coords, rot_mats):
     return torch.einsum("nc,pck->pnk", coords, rot[:, :, 1:])
 
 
-def _linear(p, x, compute_dtype=None):
-    """x @ w + b. With a compute dtype the operands are rounded to it and
+def _matmul(x, w, compute_dtype=None):
+    """x @ w. With a compute dtype the operands are rounded to it and
     multiplied in f32: bf16 products are exact in f32, so this is bf16
     operands with f32 accumulation."""
     if compute_dtype is None:
-        return x @ p["w"] + p["b"]
+        return x @ w
     cd = torch_dtype(compute_dtype)
-    return (x.to(cd).float() @ p["w"].to(cd).float()) + p["b"]
+    return x.to(cd).float() @ w.to(cd).float()
+
+
+def _linear(p, x, compute_dtype=None):
+    """x @ w + b (_matmul's rounding)."""
+    return _matmul(x, p["w"], compute_dtype) + p["b"]
 
 
 def combine_pos_planes(projs, combination: str):
@@ -268,15 +273,51 @@ def combine_all_planes(pos_projs, viewdir_proj, cfg: TriplaneConfig):
     raise ValueError(comb)
 
 
-def _mlp_branch(layers, fc_out, x_in, cfg: TriplaneConfig):
+def _mlp_branch(layers, fc_out, x_in, cfg: TriplaneConfig, mesh=None):
     """relu after every hidden layer, skip-concat of the branch input
-    when is_skip_layer(layer_num - 1), linear head."""
-    x = x_in
+    when is_skip_layer(layer_num - 1), linear head.
+
+    mesh: a parallel.sharding.Mesh with model_parallel > 1 and `layers`
+    in its decoder_tp_shardings slices: the column layers (i even) read
+    the replicated input and give this rank's block of their features;
+    the row layers (i odd) multiply their block of the input, and the
+    partial sums (f32) are reduced over the model group before the bias.
+    A skip concat that feeds a row layer does not line up with the
+    rank's block, so its features are gathered first and the layer takes
+    its block of the concatenation; after an odd number of layers the
+    last (column) layer's block is gathered for the replicated head."""
+    from nvsr_tpu_torch.parallel.sharding import model_slice, \
+        tensor_parallel
+    cd = cfg.compute_dtype
+    if not tensor_parallel(mesh):
+        x = x_in
+        for layer_num, p in enumerate(layers):
+            if cfg.is_skip_layer(layer_num - 1):
+                x = torch.cat([x, x_in], dim=-1)
+            x = torch.relu(_linear(p, x, cd))
+        return x, _linear(fc_out, x, cd)
+    from nvsr_tpu_torch.parallel.tensor import (copy_to_model,
+                                                gather_from_model,
+                                                reduce_from_model)
+    x, split = x_in, False
     for layer_num, p in enumerate(layers):
         if cfg.is_skip_layer(layer_num - 1):
+            if split:
+                x, split = gather_from_model(x, mesh), False
             x = torch.cat([x, x_in], dim=-1)
-        x = torch.relu(_linear(p, x, cfg.compute_dtype))
-    return x, _linear(fc_out, x, cfg.compute_dtype)
+        if layer_num % 2 == 0:
+            assert not split and p["w"].shape[1] * mesh.model_parallel \
+                == cfg.dec_channels, "a column layer takes a full input"
+            x, split = torch.relu(_linear(p, copy_to_model(x, mesh),
+                                          cd)), True
+        else:
+            if not split:
+                x = model_slice(copy_to_model(x, mesh), -1, mesh)
+            x, split = torch.relu(reduce_from_model(
+                _matmul(x, p["w"], cd), mesh) + p["b"]), False
+    if split:
+        x = gather_from_model(x, mesh)
+    return x, _linear(fc_out, x, cd)
 
 
 def sample_planes(planes_pos, grids, cfg: TriplaneConfig,
@@ -321,15 +362,18 @@ def sample_viewdir_plane(plane_view, viewdirs, box, cfg: TriplaneConfig,
 
 
 def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
-                       *, member: int = 0, sigma_only: bool = False):
+                       *, member: int = 0, sigma_only: bool = False,
+                       mesh=None):
     """Decoder on pre-sampled plane features [P, N, C] (+ view [N, Cv])
     -> [N, 4] (rgb logits, sigma logit).
 
     sigma_only skips the view-conditioned rgb branch: sigma is the same,
-    rgb lanes hold the fc_rgb bias."""
+    rgb lanes hold the fc_rgb bias. mesh: the tensor-parallel mesh of
+    `params`' slices (_mlp_branch), or None."""
     m = params["members"][member]
     projected_xyz = combine_pos_planes(pos_projs, cfg.proj_combination)
-    h, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected_xyz, cfg)
+    h, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected_xyz, cfg,
+                           mesh)
     if sigma_only:
         rgb = m["fc_rgb"]["b"].to(alpha.dtype).expand(
             alpha.shape[:-1] + (3,))
@@ -347,7 +391,7 @@ def decode_projections(params, cfg: TriplaneConfig, pos_projs, view_proj,
         x_rgb_in = combine_all_planes(rgb_src, view_proj, cfg)
     else:
         x_rgb_in = combine_pos_planes(rgb_src, cfg.proj_combination)
-    _, rgb = _mlp_branch(m["rgb"], m["fc_rgb"], x_rgb_in, cfg)
+    _, rgb = _mlp_branch(m["rgb"], m["fc_rgb"], x_rgb_in, cfg, mesh)
     return torch.cat([rgb, alpha], dim=-1)
 
 
@@ -356,11 +400,11 @@ def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
                           noise_generator=None,
                           plane_resolution: Optional[int] = None,
                           rot_mats=None, sigma_only: bool = False,
-                          trainable: bool = False):
+                          trainable: bool = False, mesh=None):
     """Forward on raw points [N, 3] with pre-sampled view features
     [N, Cv] (or None) -> [N, 4]. With noise_generator, the normalized
     coords get cfg.point_coords_noise (train time); trainable: see
-    sample_planes."""
+    sample_planes; mesh: see decode_projections."""
     box = torch.as_tensor(box, dtype=xyz_raw.dtype, device=xyz_raw.device)
     xyz = normalize_coords(xyz_raw, box[:, :3])
     if noise_generator is not None and cfg.point_coords_noise:
@@ -370,29 +414,33 @@ def apply_triplane_points(params, cfg: TriplaneConfig, planes_pos, box,
     grids = project_to_planes(xyz, rot)
     pos_projs = sample_planes(planes_pos, grids, cfg, trainable)
     return decode_projections(params, cfg, pos_projs, view_proj,
-                              member=member, sigma_only=sigma_only)
+                              member=member, sigma_only=sigma_only,
+                              mesh=mesh)
 
 
 def apply_triplane(params, cfg: TriplaneConfig, planes_pos, plane_view, box,
                    x, *, member: int = 0, noise_generator=None,
-                   plane_resolution: Optional[int] = None, rot_mats=None):
+                   plane_resolution: Optional[int] = None, rot_mats=None,
+                   mesh=None):
     """The reference-signature forward: [N, 3 (+3)] points (+ unit
-    viewdirs) -> [N, 4], the view plane sampled per point."""
+    viewdirs) -> [N, 4], the view plane sampled per point; mesh: see
+    decode_projections."""
     view_proj = None
     if cfg.use_viewdirs:
         view_proj = sample_viewdir_plane(plane_view, x[..., 3:], box, cfg)
     return apply_triplane_points(
         params, cfg, planes_pos, box, x[..., :3], view_proj, member=member,
         noise_generator=noise_generator, plane_resolution=plane_resolution,
-        rot_mats=rot_mats)
+        rot_mats=rot_mats, mesh=mesh)
 
 
 def make_density_fn(params, cfg: TriplaneConfig, planes_pos, box, *,
-                    member: int = 0, rot_mats=None):
+                    member: int = 0, rot_mats=None, mesh=None):
     """Density-only evaluator [N, 3] world xyz -> [N] sigma logits: the
     density branch alone (no view plane, no rgb head), through the plain
     plane gather; occupancy estimation uses it
-    (ops/occupancy.estimate_occupied_box)."""
+    (ops/occupancy.estimate_occupied_box); mesh: see
+    decode_projections."""
     m = params["members"][member]
     box = torch.as_tensor(box, dtype=torch.float32, device=planes_pos.device)
     rot = rot_mats if rot_mats is not None \
@@ -403,7 +451,8 @@ def make_density_fn(params, cfg: TriplaneConfig, planes_pos, box, *,
         grids = project_to_planes(xyz, rot)
         projected = combine_pos_planes(sample_planes(planes_pos, grids, cfg),
                                        cfg.proj_combination)
-        _, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected, cfg)
+        _, alpha = _mlp_branch(m["density"], m["fc_alpha"], projected, cfg,
+                               mesh)
         return alpha[..., 0]
 
     return density_fn
@@ -421,9 +470,11 @@ def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                         plane_resolution: Optional[int] = None,
                         rot_mats=None, sigma_only: bool = False,
                         trainable: bool = False, tile_cfg=None, table=None,
-                        packed=None, form: str = "v2"):
+                        packed=None, form: str = "v2", mesh=None):
     """Ray-structured forward: pts [R, S, 3] + per-ray viewdirs [R, 3] ->
     [R, S, 4]. The view plane is sampled once per ray and broadcast.
+    mesh: the tensor-parallel mesh of `params`' slices (see
+    decode_projections); the tiled points entry does not take one.
 
     tile_cfg: a TileSamplerConfig (ops/plane_sample.py): the points entry
     of the tiled eval forward (JAX triplane.py:456-498 into
@@ -448,6 +499,7 @@ def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
     the device. Eval only: no trainable, no noise_generator."""
     r, s, _ = pts.shape
     if tile_cfg is not None:
+        refuse_split_decoder(mesh)
         if trainable:
             raise ValueError("the tiled points entry is eval-only; the "
                              "trainable route is apply_triplane_rays_from_z"
@@ -475,8 +527,21 @@ def apply_triplane_rays(params, cfg: TriplaneConfig, planes_pos, plane_view,
                                 noise_generator=noise_generator,
                                 plane_resolution=plane_resolution,
                                 rot_mats=rot_mats, sigma_only=sigma_only,
-                                trainable=trainable)
+                                trainable=trainable, mesh=mesh)
     return out.reshape(r, s, 4)
+
+
+def refuse_split_decoder(mesh):
+    """The eval kernels' routes (the fused gather+decode kernel, the eval
+    sampler with a packed or whole decoder) take a whole decoder: a
+    tensor-parallel caller gathers its slices first
+    (Experiment._eval_decoders) and passes no mesh, or takes the
+    reference path."""
+    from nvsr_tpu_torch.parallel.sharding import tensor_parallel
+    if tensor_parallel(mesh):
+        raise ValueError("a tensor-parallel decoder cannot take the tiled "
+                         "eval route: gather it, or render without "
+                         "tile_rays")
 
 
 def _plane_coords(xyz_raw, box, rot):
@@ -547,7 +612,8 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
                                geom=None, sigma_only: bool = False,
                                trainable: bool = False,
                                noise_generator=None,
-                               plane_resolution: Optional[int] = None):
+                               plane_resolution: Optional[int] = None,
+                               mesh=None):
     """Kernel forward straight from rays: origins/directions [R, 3],
     z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}).
 
@@ -568,7 +634,9 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
     plane sampler (ops/plane_sample.py: kernel forward and backward), the
     view plane through the reference sampler and the decoder in plain
     torch, all under autograd; noise_generator adds
-    cfg.point_coords_noise to the normalized coords."""
+    cfg.point_coords_noise to the normalized coords. mesh: the
+    tensor-parallel mesh of `params`' slices, for the trainable route
+    only (ValueError on the eval routes)."""
     if trainable:
         assert not sigma_only, "training needs coarse rgb"
         pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
@@ -576,7 +644,8 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
             params, cfg, planes_pos, plane_view, box, pts, viewdirs,
             member=member, noise_generator=noise_generator,
             plane_resolution=plane_resolution, rot_mats=rot_mats,
-            trainable=True), {"overflow_frac": 0.0}
+            trainable=True, mesh=mesh), {"overflow_frac": 0.0}
+    refuse_split_decoder(mesh)
     assert noise_generator is None, \
         "point_coords_noise requires the trainable route"
     from nvsr_tpu_torch.ops import fused_render

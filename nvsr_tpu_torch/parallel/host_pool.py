@@ -7,6 +7,12 @@ broadcasts what it read to every rank. JAX's single controller writes
 each dirty scene once by construction; the port runs one process per
 rank over one store directory, so without owners every rank would write
 the same file, and a rank could read a scene while its owner writes it.
+
+The device-resident pool (`nerf.train.store_planes.device_pool`) gives
+each scene a home rank instead (`pool_homes`: JAX's round-robin
+placement over the sorted saved ids), and the home is the owner too:
+one map decides where a scene's planes live and who reads and writes
+its file (planes_store.PlanesBuffer's device_pool).
 """
 
 from __future__ import annotations
@@ -19,6 +25,19 @@ import torch.distributed as dist
 from nvsr_tpu_torch.parallel.sharding import Mesh, broadcast_
 
 
+def pool_homes(saved_ids: Sequence[str], n_ranks: int,
+               extra: Sequence[str] = ()) -> dict:
+    """{saved id: home rank} of the device pool: the sorted ids
+    round-robin over the ranks, as JAX's Experiment places them on the
+    mesh's devices in order (rank r is the mesh's r-th device). `extra`
+    ids (scenes only evaluated, which JAX's placement leaves replicated)
+    continue the round robin after them, sorted, so that the map names
+    every scene the pool can hold."""
+    ids = sorted(saved_ids)
+    ids += sorted(set(extra) - set(ids))
+    return {sid: i % n_ranks for i, sid in enumerate(ids)}
+
+
 def scene_owner(saved_scene_id: str, n_hosts: int) -> int:
     """The owner rank of a saved scene id: crc32, not hash() (Python's
     string hash is salted per process, and ranks must agree without
@@ -29,11 +48,14 @@ def scene_owner(saved_scene_id: str, n_hosts: int) -> int:
 class HostPartition:
     """One rank's view of scene ownership. process_index/process_count
     default to the process group's rank and world size (0 and 1 without
-    one); pass them to lay out several ranks in one process in tests."""
+    one); pass them to lay out several ranks in one process in tests.
+    owners: {saved id: rank} in crc32's place (the device pool's
+    homes); it must name every id asked about."""
 
     def __init__(self, scenes: Sequence[str],
                  process_index: Optional[int] = None,
-                 process_count: Optional[int] = None):
+                 process_count: Optional[int] = None,
+                 owners: Optional[dict] = None):
         live = dist.is_available() and dist.is_initialized()
         if process_count is None:
             process_count = dist.get_world_size() if live else 1
@@ -42,8 +64,11 @@ class HostPartition:
         self.process_count = process_count
         self.process_index = process_index
         self.scenes = list(scenes)
+        self.owners = owners
 
     def owner(self, saved_scene_id: str) -> int:
+        if self.owners is not None:
+            return self.owners[saved_scene_id]
         return scene_owner(saved_scene_id, self.process_count)
 
     def owns(self, saved_scene_id: str) -> bool:

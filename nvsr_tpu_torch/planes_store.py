@@ -275,7 +275,17 @@ class PlanesBuffer:
     through HostPartition.broadcast. Every rank then steps the same
     planes with the same averaged gradients, so the skipped writes lose
     nothing. Without one (or with one rank) every scene is this
-    process's."""
+    process's.
+
+    device_pool (JAX's store_planes.device_pool; with a host_partition
+    whose owners are the pool's homes): a scene's planes and Adam
+    moments are resident on its home rank alone, which reads and writes
+    its file; every other rank keeps only its small fields (box, rank,
+    occupied box) and the planes' shapes. `lend` (a step's or an eval's
+    planes; collective) broadcasts the home's planes, not its moments, into
+    transient tensors on every rank; `apply_grads` (the gradients are
+    averaged on every rank) steps Adam on the home alone and frees the
+    other ranks' copies."""
 
     def __init__(self, store: PlaneStore, training_scenes, *, lr: float,
                  buffer_size: Optional[int] = None,
@@ -283,10 +293,15 @@ class PlanesBuffer:
                  frozen_scenes=(), scene2saved: Optional[dict] = None,
                  do_when_reshuffling: Callable = None,
                  rng: np.random.Generator = None, device="cuda",
-                 host_partition=None, mesh=None):
+                 host_partition=None, mesh=None, device_pool: bool = False):
         self.store = store
         self.host_partition = host_partition
         self.mesh = mesh
+        self.device_pool = bool(device_pool and host_partition is not None
+                                and host_partition.process_count > 1
+                                and mesh is not None)
+        # the device pool's one lent scene: (saved id, plane dict)
+        self._lent = None
         self.device = torch.device(device)
         self.training_scenes = list(training_scenes)
         self.scene2saved = scene2saved or {s: s for s in self.training_scenes}
@@ -320,6 +335,12 @@ class PlanesBuffer:
     def _owns(self, saved: str) -> bool:
         return self.host_partition is None or self.host_partition.owns(saved)
 
+    def _keeps(self, saved: str) -> bool:
+        """Whether this rank keeps the scene's planes and Adam state
+        between steps: every rank, but under the device pool its home
+        alone."""
+        return not self.device_pool or self._owns(saved)
+
     def _flush(self):
         for scene in sorted(self.dirty):
             if self._owns(scene):
@@ -332,7 +353,9 @@ class PlanesBuffer:
         None); prefer_best None: the best file if there is one. Shared
         over ranks, only the owner reads the file: the small fields reach
         the others as one object, the planes and Adam moments in one
-        broadcast into zeros of their shapes."""
+        broadcast into zeros of their shapes. Under the device pool
+        nothing else is sent: the other ranks get the ScenePlanes with
+        each tensor's (shape, dtype) in its place, and no Adam state."""
         part = self.host_partition
         shared = (part is not None and part.process_count > 1
                   and self.mesh is not None)
@@ -355,6 +378,9 @@ class PlanesBuffer:
             spec = broadcast_object(
                 None if planes is None else _spec(planes, opt_state),
                 part.owner(saved), mesh=self.mesh)
+            if self.device_pool:
+                return (planes, opt_state) if planes is not None \
+                    else (spec[0], None)
             if planes is None:
                 planes, opt_state = _zeros_of(spec, self.device)
             part.broadcast([planes.params(), None if opt_state is None
@@ -367,7 +393,7 @@ class PlanesBuffer:
         state too (the stored one, else a fresh one)."""
         planes, opt_state = self._fetch(saved, prefer_best, trained)
         self.resident[saved] = planes
-        if trained:
+        if trained and self._keeps(saved):
             self.opt.add_scene(saved, planes.params(), opt_state)
 
     def draw_scenes(self):
@@ -380,6 +406,7 @@ class PlanesBuffer:
         self.cur_scenes = self.sampler.sample(
             self.buffer_size, just_shuffle=self.steps_per_buffer == -1)
         keep = {self.scene2saved[s] for s in self.cur_scenes}
+        self._lent = None
         for scene in list(self.resident):
             if scene not in keep:
                 del self.resident[scene]
@@ -408,7 +435,44 @@ class PlanesBuffer:
             self._prefetch = native_store.Prefetcher(paths, n_threads=2)
 
     def get(self, scene: str) -> ScenePlanes:
+        """A resident scene's planes as this rank holds them: under the
+        device pool a rank that is not the scene's home holds its small
+        fields (box, rank, occupied box) and no tensors (`lend` gives
+        them)."""
         return self.resident[self.scene2saved[scene]]
+
+    def lend(self, scene: str) -> ScenePlanes:
+        """A resident scene's planes with their tensors, for a step, an
+        occupancy update or an eval. Under the device pool this is
+        collective (every rank calls it, in the same order): the home
+        broadcasts the planes into transient tensors on the other ranks,
+        once until the next apply_grads or the next scene (one scene is
+        lent at a time). Otherwise it is `get`."""
+        saved = self.scene2saved[scene]
+        planes = self.resident[saved]
+        if not self.device_pool:
+            return planes
+        if self._lent is None or self._lent[0] != saved:
+            self._lent = None
+            params = planes.params() if self._owns(saved) \
+                else _zeros_of((planes, None), self.device)[0].params()
+            self.host_partition.broadcast([params], saved, self.mesh)
+            self._lent = (saved, params)
+        return planes.with_params(self._lent[1])
+
+    def resident_bytes(self) -> int:
+        """The bytes of plane and Adam-moment tensors this rank keeps
+        between steps (a lent scene's transient copy is not counted)."""
+        total = 0
+        for planes in self.resident.values():
+            for t in planes.params().values():
+                if torch.is_tensor(t):
+                    total += t.numel() * t.element_size()
+        for scene in self.opt.planes:
+            st = self.opt.state(scene)
+            for t in list(st.mu.values()) + list(st.nu.values()):
+                total += t.numel() * t.element_size()
+        return total
 
     def load_scene(self, scene: str, load_best: bool = False) -> ScenePlanes:
         """One scene's planes for evaluation, loaded on first use."""
@@ -418,7 +482,7 @@ class PlanesBuffer:
             self._load(saved, prefer_best=load_best,
                        trained=self.optimize
                        and scene not in self.frozen_scenes)
-        return self.resident[saved]
+        return self.lend(scene)
 
     # -- optimization -------------------------------------------------------
     def apply_grads(self, scene: str, grads: dict):
@@ -427,7 +491,9 @@ class PlanesBuffer:
         if not self.optimize or scene in self.frozen_scenes:
             return
         saved = self.scene2saved[scene]
-        self.opt.apply_grads(saved, grads)
+        self._lent = None
+        if self._keeps(saved):
+            self.opt.apply_grads(saved, grads)
         self.dirty.add(saved)
 
     def set_occ_aabb(self, scene: str, aabb):
@@ -505,7 +571,13 @@ class PlanesBuffer:
         for sc in self.training_scenes:
             saved = self.scene2saved[sc]
             if saved in self.resident:
-                planes = self.resident[saved]
+                planes = self.lend(sc)
+            elif self.device_pool:
+                # lent for the statistics, then dropped again
+                self._load(saved, None, False)
+                planes = self.lend(sc)
+                del self.resident[saved]
+                self._lent = None
             else:
                 planes, _ = self._fetch(saved, None, False)
             pos = _numpy(planes.planes_pos)

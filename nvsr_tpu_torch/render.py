@@ -207,12 +207,14 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
     """Render any number of rays in blocks of rcfg.ray_block; the last
     block is zero-padded to full size (its pad rays are cropped).
 
-    mesh: a parallel.sharding.Mesh: each rank renders whole blocks,
-    round-robin (block i on rank i % W), so every kernel launch keeps
-    the full block; it writes them into zeros of the image's outputs,
-    and one all_reduce(SUM) assembles them (exact: each entry is x + 0).
-    Only a deterministic render (no jitter, no density noise) may take
-    it, as JAX's mesh-sharded eval requires."""
+    mesh: a parallel.sharding.Mesh: each data index renders whole
+    blocks, round-robin (block i on data index i % D), so every kernel
+    launch keeps the full block; it writes them into zeros of the
+    image's outputs, and one all_reduce(SUM) over the data group
+    assembles them (exact: each entry is x + 0). The ranks of one model
+    group take the same blocks in lockstep, so a tensor-parallel point
+    fn's collectives meet. Only a deterministic render (no jitter, no
+    density noise) may take it, as JAX's mesh-sharded eval requires."""
     n = rays.origins.shape[0]
     block = min(rcfg.ray_block, max(n, 1))
     n_blocks = -(-n // block)
@@ -221,7 +223,7 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
     if mesh is not None:
         assert not rcfg.perturb and rcfg.radiance_field_noise_std == 0.0, \
             "a mesh-sharded render requires deterministic sampling"
-        mine = list(range(mesh.rank, n_blocks, mesh.world))
+        mine = list(range(mesh.data_index, n_blocks, mesh.data_size))
         # a rank without a block of its own renders block 0 only for the
         # outputs' shapes, so that it joins the collective
         todo = mine or [0]
@@ -261,8 +263,8 @@ def _assemble(results: dict, mine: list, n_blocks: int, block: int, n: int,
     """The image of a mesh-sharded render from each rank's blocks `mine`
     (rendered in `results`): each output field as zeros of the whole
     padded image with this rank's blocks written in, one all_reduce(SUM)
-    over every field; the aux scalars (each a max over blocks) reduced
-    with MAX."""
+    over every field on the data group; the aux scalars (each a max over
+    blocks) reduced with MAX."""
     first = next(iter(results.values()))
 
     def zeros(out):
@@ -280,7 +282,7 @@ def _assemble(results: dict, mine: list, n_blocks: int, block: int, n: int,
             for d, s in zip(dst, src):
                 if d is not None:
                     d[i * block:(i + 1) * block] = s
-    full = all_reduce_((full.coarse, full.fine), mesh=mesh)
+    full = all_reduce_((full.coarse, full.fine), mesh=mesh, axis="data")
     if aux:
         keys = sorted(aux)
         t = torch.tensor([float(aux[k]) for k in keys], dtype=torch.float64)
@@ -300,7 +302,7 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                            tile_train: bool = False,
                            noise_generator: Optional[torch.Generator] = None,
                            plane_resolution: Optional[int] = None,
-                           sigma_only: bool = False) -> PointFn:
+                           sigma_only: bool = False, mesh=None) -> PointFn:
     """Triplane decoder point function.
 
     tile_rays: route the pass through a hand-written kernel (the
@@ -324,7 +326,12 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
 
     sigma_only: CDF-only decode for an eval COARSE pass: the rgb branch
     and the view-plane sample are skipped; sigma is unchanged, so the
-    fine image of a coarse+fine render is unchanged."""
+    fine image of a coarse+fine render is unchanged.
+
+    mesh: a tensor-parallel mesh whose decoder slices `params` holds
+    (models.triplane.decode_projections): the reference path and the
+    trainable route take it; the eval kernels' routes refuse it
+    (ValueError), as JAX routes such evals off its tiled path."""
     from nvsr_tpu_torch.models.triplane import (apply_triplane_rays,
                                                 apply_triplane_rays_from_z,
                                                 make_rot_mats, rot_mats_on)
@@ -343,7 +350,7 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                 rays.origins, rays.directions, rays.viewdirs, z_vals,
                 member=member, rot_mats=rot_dev, trainable=True,
                 noise_generator=noise_generator,
-                plane_resolution=plane_resolution)
+                plane_resolution=plane_resolution, mesh=mesh)
 
         point_fn.consumes_rays = True
         point_fn.has_aux = True
@@ -351,7 +358,9 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
         return point_fn
 
     if tile_rays is not None:
+        from nvsr_tpu_torch.models.triplane import refuse_split_decoder
         from nvsr_tpu_torch.ops import fused_render
+        refuse_split_decoder(mesh)
         # the fused eval path cannot backprop or add coordinate noise: a
         # silently dropped noise generator would change semantics
         assert noise_generator is None and plane_resolution is None, (
@@ -383,7 +392,8 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
             params, model_cfg, planes_pos, plane_view, box_dev, pts,
             rays.viewdirs, member=member, rot_mats=rot_dev,
             noise_generator=noise_generator,
-            plane_resolution=plane_resolution, sigma_only=sigma_only)
+            plane_resolution=plane_resolution, sigma_only=sigma_only,
+            mesh=mesh)
 
     return point_fn
 

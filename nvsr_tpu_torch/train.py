@@ -119,7 +119,7 @@ def _inputs(tree, trainable: bool):
 def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
                rays: RayBundle, target, generator: torch.Generator, *,
                model_cfg: TriplaneConfig, sr_cfg: Optional[PlaneSRConfig],
-               rcfg: RenderConfig, flags: StepFlags):
+               rcfg: RenderConfig, flags: StepFlags, mesh=None):
     """Forward and backward for one ray batch.
 
     decoder_coarse/decoder_fine: decoder pytrees (fine is ignored with
@@ -129,7 +129,12 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     on the rays' device, which draws every random number of the step
     (jitter, density noise, SR noise, point noise) in the JAX key's
     place; a shard of a batch split over ranks passes an
-    ops.draws.RowShard of it (render.render_rays).
+    ops.draws.RowShard of it (render.render_rays). mesh: a
+    tensor-parallel mesh (model_parallel > 1) whose slices the decoders
+    and the SR net hold (parallel.sharding.decoder_tp_shardings,
+    plane_sr_tp_shardings): their forward and backward run the model
+    group's collectives, and each sliced gradient is this rank's block;
+    None otherwise.
 
     Returns (metrics, grads): metrics holds detached scalar tensors
     (loss, coarse_loss, fine_loss, psnr, fine_psnr, and overflow_frac on
@@ -167,7 +172,8 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
             else planes_pos
         # the SR net's noise is of the planes, not of the batch's rows
         fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
-                                     generator=draws.base(generator))
+                                     generator=draws.base(generator),
+                                     mesh=mesh)
         if flags.apply_sr_to_coarse:
             coarse_planes = fine_planes
 
@@ -177,11 +183,12 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     pf_coarse = make_triplane_point_fn(
         dc, model_cfg, coarse_planes, plane_view, box, member=flags.member,
         noise_generator=noise_gen, plane_resolution=flags.plane_resolution,
-        **tiled)
+        mesh=mesh, **tiled)
     # the fine pass keeps the plain gather even with tile_cfg, as in JAX
     pf_fine = make_triplane_point_fn(
         df, model_cfg, fine_planes, plane_view, box, member=flags.member,
-        noise_generator=noise_gen, plane_resolution=flags.plane_resolution)
+        noise_generator=noise_gen, plane_resolution=flags.plane_resolution,
+        mesh=mesh)
     out = render_rays(pf_coarse, pf_fine, rays, rcfg, generator)
 
     rgb_coarse = out.coarse.rgb
@@ -224,21 +231,25 @@ _SUM_METRICS = ("surf_w", "surf_wx", "surf_wx2")
 
 
 def reduce_step(mesh, metrics: dict, grads: dict):
-    """One step's metrics and gradients over a data-parallel mesh (the
-    psum XLA inserts in JAX). Gradients and the loss terms are averaged
-    over the ranks: the shards are equal, so the mean of their losses'
-    gradients is the gradient of the global batch's mean loss. The PSNRs
-    are recomputed from the averaged MSEs (a mean of PSNRs is not the
-    PSNR of the mean); the surface moments are sums. One all_reduce
-    (SUM) carries all of it. Returns (metrics, grads); both as given
-    without a mesh."""
+    """One step's metrics and gradients over a mesh's data axis (the psum
+    XLA inserts in JAX). Gradients and the loss terms are averaged over
+    the data group: the shards are equal, so the mean of their losses'
+    gradients is the gradient of the global batch's mean loss. Under
+    model_parallel > 1 a sliced gradient is averaged with the same
+    slices of the other data indices, and a replicated one (the heads',
+    BatchNorm's, the planes') is already equal over the model group,
+    whose backward collectives summed its parts. The PSNRs are
+    recomputed from the averaged MSEs (a mean of PSNRs is not the PSNR of
+    the mean); the surface moments are sums. One all_reduce (SUM)
+    carries all of it. Returns (metrics, grads); both as given without a
+    mesh."""
     if mesh is None:
         return metrics, grads
     mean = {"grads": grads, **{k: metrics[k] for k in _MEAN_METRICS}}
     sums = {k: metrics[k] for k in _SUM_METRICS if k in metrics}
-    mean, sums = all_reduce_((mean, sums), mesh=mesh)
-    if mesh.world > 1:
-        torch._foreach_div_(_leaves(mean), float(mesh.world))
+    mean, sums = all_reduce_((mean, sums), mesh=mesh, axis="data")
+    if mesh.data_size > 1:
+        torch._foreach_div_(_leaves(mean), float(mesh.data_size))
     out = dict(metrics, **sums, **{k: mean[k] for k in _MEAN_METRICS})
     out["psnr"] = mse2psnr(out["loss"])
     out["fine_psnr"] = mse2psnr(out["fine_loss"])
@@ -372,6 +383,9 @@ class ModuleOptimizer:
     """One Adam (eps 1e-8) over a parameter pytree, with virtual batches:
     `accumulate` sums gradient trees, `step` applies the sum once and
     clears it. The pytree's tensors are updated in place.
+
+    Under tensor parallelism `params` holds this rank's slices, and Adam
+    (elementwise) steps them as the full Adam steps the whole leaves.
 
     `state` is the Adam state in optax.adam's layout,
     (ScaleByAdamState(count, mu, nu), EmptyState()) with mu and nu in the

@@ -145,3 +145,21 @@ def test_dist_phase_rehearses_on_the_cpu():
     small = dict(rays=128, samples=4, channels=8, res=12, view_res=4,
                  sr_hidden=4, sr_blocks=1, sr_scale=2, image=32)
     cs.dist_phase("cpu", w=small, on_card=False, iters=4)
+
+
+def test_tp_phase_rehearses_on_the_cpu():
+    """chip_smoke.py's phase 12 on the CPU at a small width, through the
+    entry point as on the card: the plain runs, the tensor-parallel world
+    of 2 (model_parallel 2), the device pool's and the replicated world
+    of 2 on four scenes, `--eval images` of the tensor-parallel and the
+    pooled logdir by a world of 2 and by one process; the full layout of
+    the logdirs, each rank's split bytes, the homes, the home-only plane
+    files and residency; the pool bit for bit against the replicated
+    world."""
+    cs = _chip_smoke()
+    small = dict(rays=128, samples=4, channels=8, res=12, view_res=4,
+                 sr_hidden=4, sr_blocks=1, sr_scale=2, image=32)
+    launches = cs.tp_phase("cpu", w=small, on_card=False, iters=4)
+    assert {n: len(ranks) for n, ranks in launches.items()} == {
+        "plain": 1, "again": 1, "tp": 2, "pool": 2, "rep": 2, "own_tp": 2,
+        "one_tp": 1, "own_pool": 2, "one_pool": 1}

@@ -25,8 +25,10 @@ the CPU, as tests/test_experiment_mesh.py holds JAX's on its mesh:
 * the CLI under `python -m torch.distributed.run --standalone
   --nproc_per_node=2 ... --device cpu` writes the logdir a world-1 run
   writes (one tensorboard event file);
-* the refusals: data_parallel beyond the world, model_parallel > 1 and
-  store_planes.device_pool.
+* the refusal of data_parallel beyond the world; a world of 1 ignores
+  model_parallel and store_planes.device_pool, as JAX's one device does
+  (tests/test_torch_tensor_parallel.py and test_torch_device_pool.py run
+  them on worlds of 2 and 4).
 """
 
 import os
@@ -248,8 +250,9 @@ def test_cli_under_torchrun_writes_the_world1_logdir(corpus, tmp_path):
 
 def test_refusals(corpus):
     """Without a process group the world is 1: data_parallel 2 exceeds
-    it; model_parallel > 1 and store_planes.device_pool are the next
-    slice."""
+    it; model_parallel and store_planes.device_pool are ignored there, as
+    JAX's Experiment on one device ignores them (no mesh, whole
+    decoders, every scene's planes in this process)."""
     def exp(cfg):
         return TExperiment(TCfgNode(cfg.to_dict()), root_path=str(corpus),
                            device="cpu")
@@ -258,12 +261,14 @@ def test_refusals(corpus):
         exp(_cfg(corpus, "logs/ref_dp", data_parallel=2))
     cfg = _cfg(corpus, "logs/ref_mp")
     cfg.experiment["model_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 #2 \\(b\\)"):
-        exp(cfg)
+    one = exp(cfg)
+    assert one.mesh is None and one._tp is None
+    assert one.decoder_coarse["members"][0]["density"][0]["w"].shape[1] \
+        == cfg.models.coarse["dec_channels"]
     cfg = _cfg(corpus, "logs/ref_pool")
     cfg.nerf.train.store_planes["device_pool"] = True
-    with pytest.raises(NotImplementedError, match="Queue 1 #2 \\(c\\)"):
-        exp(cfg)
+    one = exp(cfg)
+    assert one.mesh is None and not one.planes_buffer.device_pool
     # data_parallel: true without a process group is the world of 1 (no
     # mesh), as JAX's on one device
     assert exp(_cfg(corpus, "logs/ref_one")).mesh is None

@@ -13,7 +13,9 @@
 * the two-rank plane pool (tests/test_parallel.py:217 with real ranks
   over one store directory): every read and write by the scene's owner,
   the same draws on both ranks, and a fresh reader sees the trained
-  state.
+  state;
+* the tensor-parallel layouts and what they refuse, as JAX refuses it
+  (tests/test_torch_tensor_parallel.py runs them).
 
 Spawned gloo worlds run one torch thread a rank and fail after a
 timeout instead of hanging (tests/torch_dist_helpers.py)."""
@@ -120,6 +122,19 @@ def test_dryrun_two_ranks():
     assert set(fields["control_grad_rel_delta_by_group"].values()) == {0.0}
 
 
+def test_dryrun_tensor_parallel():
+    """The dry run under a model axis of 2: the step within JAX's
+    tensor-parallel bounds, the eval render on the decoders gathered
+    over the model group exactly the world of 1's, and the split
+    activations gathered by all_gather on CPU tensors."""
+    fields = dryrun_multichip(2, device="cpu", timeout=120, model_parallel=2)
+    assert fields["mesh"] == {"data": 1, "model": 2}
+    assert fields["loss_delta"] <= 1e-5 * abs(fields["loss"])
+    assert fields["grad_rel_delta"] <= 5e-4
+    assert fields["eval_render_max_delta"] == 0.0
+    assert fields["collectives"]["model:all_gather"] > 0
+
+
 def test_two_rank_pool_cycle(tmp_path):
     from nvsr_tpu_torch.planes_store import PlaneStore, ScenePlanes
 
@@ -157,8 +172,39 @@ def test_two_rank_pool_cycle(tmp_path):
 
 
 def test_tensor_parallel_refuses():
-    with pytest.raises(NotImplementedError, match="Queue 1 #2 \\(b\\)"):
-        sharding.make_mesh(2, model_parallel=2)
-    for fn in (sharding.decoder_tp_shardings, sharding.plane_sr_tp_shardings):
-        with pytest.raises(NotImplementedError, match="Queue 1 #2 \\(b\\)"):
-            fn({}, None)
+    """What JAX refuses, the port refuses: a model axis that does not
+    divide the mesh (JAX asserts) and a split axis that does not divide
+    by it (JAX's device_put raises ValueError); the layouts themselves
+    are JAX's (column, row, replicated heads; conv output channels)."""
+    with pytest.raises(ValueError, match="does not divide"):
+        sharding.make_mesh(3, model_parallel=2)
+    from nvsr_tpu_torch.models.plane_sr import (PlaneSRConfig,
+                                                init_plane_sr_params)
+    from nvsr_tpu_torch.models.triplane import (TriplaneConfig,
+                                                init_decoder_params)
+    gen = torch.Generator().manual_seed(0)
+    dec = init_decoder_params(gen, TriplaneConfig(
+        dec_channels=6, num_plane_channels=4, dec_density_layers=3,
+        dec_rgb_layers=2), "cpu")
+    sr = init_plane_sr_params(gen, PlaneSRConfig(
+        in_channels=4, out_channels=4, hidden_size=6, n_blocks=1,
+        scale_factor=2), "cpu")
+    mesh = sharding.Mesh(1, 2, None, None, torch.device("cpu"),
+                         model_parallel=2)
+    lay = sharding.decoder_tp_shardings(dec, mesh)["members"][0]
+    assert lay["density"] == [{"w": 1, "b": 0}, {"w": 0, "b": None},
+                              {"w": 1, "b": 0}]
+    assert lay["fc_alpha"] == lay["fc_rgb"] == {"w": None, "b": None}
+    sr_lay = sharding.plane_sr_tp_shardings(sr, mesh)["inner"]
+    assert sr_lay["conv_input"] == {"w": 0}
+    mine = sharding.shard_tree(dec, {"members": [lay]}, mesh)["members"][0]
+    np.testing.assert_array_equal(mine["density"][0]["w"].numpy(),
+                                  dec["members"][0]["density"][0]["w"]
+                                  [:, 3:].numpy())
+    assert mine["fc_rgb"]["w"] is dec["members"][0]["fc_rgb"]["w"]
+    # 6 hidden features split over 2 ranks, not over 4
+    odd = sharding.Mesh(0, 4, None, None, torch.device("cpu"),
+                        model_parallel=4)
+    with pytest.raises(ValueError, match="does not split"):
+        sharding.shard_tree(dec, sharding.decoder_tp_shardings(dec, odd),
+                            odd)
