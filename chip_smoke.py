@@ -7,6 +7,10 @@ and from-rays entries, one Experiment eval view, and one LR and one
 HR/SR Experiment iteration, with torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
+  0. build and load the native plane-store library (native/nvsr_native.cpp
+     into build/nvsr_tpu_torch/native/), printing its path and build
+     seconds: the Experiment phases write their plane files through it,
+     and there is no fallback to npz;
   1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
   2. hold each kernel against its plain PyTorch version at the flagship
      pass shapes (one 8192-ray block each: coarse S=16 sigma-only on 200^2
@@ -128,15 +132,17 @@ Phases (any failure raises and the script exits non-zero):
      nvsr_tpu_torch.cli's main in each rank with probes (cli_rank:
      iterations timed between synchronizes, collectives, flushed losses,
      eval renders, plane files and pickles written, launches, peak
-     memory). Phase 9's TrainModels config (as YAML, full width,
-     `experiment.data_parallel: true`, the trainable route, an evaluate
-     at the first and the last of 16 iterations, one save) on phase 9's
-     scene, trained (a) without torchrun and as a world of 1 under NCCL,
-     each alone on the card, (b) as a world of 2 under gloo with both
-     ranks on cuda:0 beside a second plain run (the run-to-run control)
-     and the port's dry run (`python -m nvsr_tpu_torch.parallel.dryrun 2
-     --device cuda:0 --dist-backend gloo`: one sharded step and eval
-     render against the world of 1, gated by its own checks); then
+     memory, the PlaneStore backends, which must all be native on every
+     rank of every run of phases 11 and 12). Phase 9's TrainModels config
+     (as YAML, full width, `experiment.data_parallel: true`, the trainable
+     route, an evaluate at the first and the last of 16 iterations, one
+     save) on phase 9's scene, trained (a) without torchrun and as a world
+     of 1 under NCCL, each alone on the card, (b) as a world of 2 under
+     gloo with both ranks on cuda:0 beside a second plain run (the
+     run-to-run control) and the port's dry run (`python -m
+     nvsr_tpu_torch.parallel.dryrun 2 --device cuda:0 --dist-backend
+     gloo`: one sharded step and eval render against the world of 1, gated
+     by its own checks); then
      `--eval images` of the plain run's logdir by each, and of the world
      of 2's own logdir. Checks: the world of 1's first iteration (no
      update before it), its eval renders and PNGs bit-equal to the plain
@@ -3094,12 +3100,14 @@ def cli_rank(report, argv):
             torch.cuda.synchronize()
 
     rec = {"iters": [], "scalars": [], "renders": [], "planes_written": [],
-           "pickles": [], "want_full": 0, "modules": None, "homes": None}
+           "pickles": [], "want_full": 0, "modules": None, "homes": None,
+           "store_backends": []}
     made = []
     exp_cls = experiment.Experiment
     real_iter, real_render = exp_cls.train_iteration, \
         exp_cls.render_eval_image
     real_scalar, real_save = ExperimentLogger.write_scalar, PlaneStore.save
+    real_store_init = PlaneStore.__init__
     real_pickle = experiment.save_pickle
 
     def train_iteration(self, i):
@@ -3143,6 +3151,10 @@ def cli_rank(report, argv):
             rec["scalars"].append((name, index, float(value)))
         return real_scalar(self, name, value, index)
 
+    def store_init(self, *a, **kw):
+        real_store_init(self, *a, **kw)
+        rec["store_backends"].append(self.backend)
+
     def save(self, scene, *a, **kw):
         rec["planes_written"].append(scene)
         return real_save(self, scene, *a, **kw)
@@ -3154,6 +3166,7 @@ def cli_rank(report, argv):
     exp_cls.train_iteration = train_iteration
     exp_cls.render_eval_image = render_eval_image
     ExperimentLogger.write_scalar = write_scalar
+    PlaneStore.__init__ = store_init
     PlaneStore.save = save
     experiment.save_pickle = save_pickle
     for k in kernels.KERNELS:
@@ -3286,6 +3299,12 @@ class CliRuns:
             for r in range(world):
                 with open(f"{report}.{r}.pkl", "rb") as f:
                     ranks.append(pickle.load(f))
+            backends = [sorted(set(rep["store_backends"])) for rep in ranks]
+            print(f"[phase {self.phase}] {name}: PlaneStore backend by rank "
+                  f"{backends}")
+            if any(b != ["native"] for b in backends):
+                fail(f"phase {self.phase} run {name}: a rank's plane store "
+                     f"is not native: {backends}")
             out[name] = ranks
         return out
 
@@ -4162,10 +4181,24 @@ def card_setup():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # -- 0. the native plane store --------------------------------------
+    from nvsr_tpu_torch.utils import native_store
+    t0 = time.perf_counter()
+    try:
+        lib = native_store._build_library()
+    except RuntimeError as e:
+        fail(f"the native plane store did not build: {e}")
+    if not native_store.available():
+        fail(f"the native plane store did not load: "
+             f"{native_store._lib_error}")
+    print(f"[native] plane store library {lib} built and loaded in "
+          f"{time.perf_counter() - t0:.3f} s ({card})")
+
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     libs = kernels.build(verbose=True)
-    print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
+          f"({card})")
     return card, torch.device("cuda", 0)
 
 

@@ -4,17 +4,25 @@ Builds the shared library on first use (g++ is in the image; no
 pybind11 — plain C ABI + ctypes). Falls back cleanly when the toolchain
 or build is unavailable: callers check `available()`.
 
-The port's copy of nvsr_tpu/utils/native_store.py: it builds the same
-`native/` library (unchanged) with `make`, and reads and writes the same
-NVPS files as the JAX package.
+The port's copy of nvsr_tpu/utils/native_store.py. It compiles the same
+source (unchanged) with the flags of native/Makefile, but into
+build/nvsr_tpu_torch/native/ and never under native/: the library is
+named by a digest of the source, the Makefile and the flags, compiled
+into a per-process temporary and published with os.replace, so a file at
+the final path is always whole and processes that build at once only
+repeat a compile. It reads and writes the same NVPS files as the JAX
+package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
 import threading
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -37,75 +45,96 @@ _CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 # bfloat16 is stored as raw uint16 payload with its own code
 _BF16_CODE = 9
 
+_ROOT = Path(__file__).resolve().parent.parent.parent
+NATIVE_DIR = _ROOT / "native"
+BUILD_DIR = _ROOT / "build" / "nvsr_tpu_torch" / "native"
+# native/Makefile's CXXFLAGS and LDFLAGS
+CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall")
+LDFLAGS = ("-shared", "-lz", "-lpthread")
+
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
+_lib_error = ""
 
 
-def _repo_root() -> str:
-    return os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+def lib_path(build_dir=None) -> Path:
+    """Where the library for this source, Makefile and flags is published."""
+    digest = hashlib.sha256(
+        (NATIVE_DIR / "nvsr_native.cpp").read_bytes()
+        + (NATIVE_DIR / "Makefile").read_bytes()
+        + " ".join(CXXFLAGS + LDFLAGS).encode()).hexdigest()
+    return Path(build_dir or BUILD_DIR) / f"libnvsr_native-{digest[:16]}.so"
 
 
-def _build_library() -> Optional[str]:
-    native_dir = os.path.join(_repo_root(), "native")
-    target = os.path.join(native_dir, "build", "libnvsr_native.so")
-    src = os.path.join(native_dir, "nvsr_native.cpp")
-    if not os.path.isfile(src):
-        return None
-    if (os.path.isfile(target)
-            and os.path.getmtime(target) >= os.path.getmtime(src)):
-        return target
+def _build_library(build_dir=None) -> str:
+    """The published library's path, compiled first if it is missing.
+    Raises RuntimeError (with the compiler's output) when there is no
+    source or toolchain or the compile fails."""
+    src = NATIVE_DIR / "nvsr_native.cpp"
+    if not src.is_file():
+        raise RuntimeError(f"no native source at {src}")
+    target = lib_path(build_dir)
+    if target.is_file():
+        return str(target)
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found")
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["make", "-C", native_dir], check=True,
-                       capture_output=True, timeout=120)
-        return target if os.path.isfile(target) else None
-    except Exception:
-        return None
+        proc = subprocess.run(
+            [cxx, *CXXFLAGS, str(src), *LDFLAGS, "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=120)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src}:\n{proc.stdout}")
+        os.replace(tmp, target)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return str(target)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    c = ctypes
+    lib.nvps_write.restype = c.c_int
+    lib.nvps_write.argtypes = [
+        c.c_char_p, c.c_int32, c.POINTER(c.c_char_p),
+        c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+        c.POINTER(c.c_int64), c.POINTER(c.c_void_p),
+        c.POINTER(c.c_int64)]
+    lib.nvps_open.restype = c.c_int64
+    lib.nvps_open.argtypes = [c.c_char_p]
+    lib.nvps_num_arrays.restype = c.c_int32
+    lib.nvps_num_arrays.argtypes = [c.c_int64]
+    lib.nvps_get_info.restype = c.c_int
+    lib.nvps_get_info.argtypes = [
+        c.c_int64, c.c_int32, c.c_char_p, c.POINTER(c.c_int32),
+        c.POINTER(c.c_int32), c.POINTER(c.c_int64),
+        c.POINTER(c.c_int64)]
+    lib.nvps_read.restype = c.c_int
+    lib.nvps_read.argtypes = [c.c_int64, c.c_int32, c.c_void_p]
+    lib.nvps_close.restype = None
+    lib.nvps_close.argtypes = [c.c_int64]
+    lib.nvps_prefetch_start.restype = c.c_int64
+    lib.nvps_prefetch_start.argtypes = [c.POINTER(c.c_char_p),
+                                        c.c_int32, c.c_int32]
+    lib.nvps_prefetch_remaining.restype = c.c_int32
+    lib.nvps_prefetch_remaining.argtypes = [c.c_int64]
+    lib.nvps_prefetch_join.restype = None
+    lib.nvps_prefetch_join.argtypes = [c.c_int64]
+    return lib
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _lib_failed
+    global _lib, _lib_failed, _lib_error
     with _lib_lock:
         if _lib is not None or _lib_failed:
             return _lib
-        path = _build_library()
-        if path is None:
-            _lib_failed = True
-            return None
         try:
-            lib = ctypes.CDLL(path)
-        except OSError:
-            _lib_failed = True
-            return None
-        c = ctypes
-        lib.nvps_write.restype = c.c_int
-        lib.nvps_write.argtypes = [
-            c.c_char_p, c.c_int32, c.POINTER(c.c_char_p),
-            c.POINTER(c.c_int32), c.POINTER(c.c_int32),
-            c.POINTER(c.c_int64), c.POINTER(c.c_void_p),
-            c.POINTER(c.c_int64)]
-        lib.nvps_open.restype = c.c_int64
-        lib.nvps_open.argtypes = [c.c_char_p]
-        lib.nvps_num_arrays.restype = c.c_int32
-        lib.nvps_num_arrays.argtypes = [c.c_int64]
-        lib.nvps_get_info.restype = c.c_int
-        lib.nvps_get_info.argtypes = [
-            c.c_int64, c.c_int32, c.c_char_p, c.POINTER(c.c_int32),
-            c.POINTER(c.c_int32), c.POINTER(c.c_int64),
-            c.POINTER(c.c_int64)]
-        lib.nvps_read.restype = c.c_int
-        lib.nvps_read.argtypes = [c.c_int64, c.c_int32, c.c_void_p]
-        lib.nvps_close.restype = None
-        lib.nvps_close.argtypes = [c.c_int64]
-        lib.nvps_prefetch_start.restype = c.c_int64
-        lib.nvps_prefetch_start.argtypes = [c.POINTER(c.c_char_p),
-                                            c.c_int32, c.c_int32]
-        lib.nvps_prefetch_remaining.restype = c.c_int32
-        lib.nvps_prefetch_remaining.argtypes = [c.c_int64]
-        lib.nvps_prefetch_join.restype = None
-        lib.nvps_prefetch_join.argtypes = [c.c_int64]
-        _lib = lib
+            _lib = _bind(ctypes.CDLL(_build_library()))
+        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            _lib_failed, _lib_error = True, str(e)
         return _lib
 
 
@@ -125,7 +154,8 @@ def _dtype_code(arr: np.ndarray) -> int:
 def save_arrays(path: str, arrays: dict) -> None:
     """Atomically write {name: ndarray} as an NVPS bundle."""
     lib = _get_lib()
-    assert lib is not None, "native store library unavailable"
+    assert lib is not None, \
+        f"native store library unavailable: {_lib_error}"
     items = list(arrays.items())
     n = len(items)
     names = (ctypes.c_char_p * n)(
@@ -156,7 +186,8 @@ def save_arrays(path: str, arrays: dict) -> None:
 def load_arrays(path: str) -> dict:
     """Read an NVPS bundle into {name: ndarray}."""
     lib = _get_lib()
-    assert lib is not None, "native store library unavailable"
+    assert lib is not None, \
+        f"native store library unavailable: {_lib_error}"
     handle = lib.nvps_open(path.encode())
     if handle == 0:
         raise IOError(f"nvps_open failed (missing/corrupt): {path}")
@@ -207,7 +238,8 @@ class Prefetcher:
 
     def __init__(self, paths, n_threads: int = 2):
         lib = _get_lib()
-        assert lib is not None
+        assert lib is not None, \
+            f"native store library unavailable: {_lib_error}"
         self._lib = lib
         paths = [p for p in paths if os.path.isfile(p)]
         arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])

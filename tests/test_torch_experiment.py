@@ -51,6 +51,7 @@ from nvsr_tpu_torch.ops import resize as tresize
 from nvsr_tpu_torch.utils import io as tio
 from nvsr_tpu_torch.utils.config import get_config as tget_config
 from test_experiment import _mini_cfg
+from torch_port_helpers import jax_native_ready
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = {"4,8,8": ["lego"], "2,16,8": ["lego"]}
@@ -398,7 +399,7 @@ def test_plane_store_bit_equal_both_ways(tmp_path, rng, backend, writer):
     """Planes, box, occupied box and the planes' Adam state (keys opt_i in
     JAX's flatten order) written by one package load bit-equal in the
     other, through either backend."""
-    if backend == "native" and not jnative.available():
+    if backend == "native" and not jax_native_ready():
         pytest.fail("the native store library did not build")
     planes, state = _jax_scene(rng)
     leaves = [np.asarray(x) for x in jax.tree.leaves(state)]

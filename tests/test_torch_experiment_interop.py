@@ -37,6 +37,7 @@ from nvsr_tpu.experiment import find_latest_checkpoint
 from nvsr_tpu.planes_store import PlaneStore as JPlaneStore
 from nvsr_tpu_torch.experiment import Experiment as TExperiment
 from test_experiment import _mini_cfg
+from torch_port_helpers import jax_native_ready
 
 TRAIN = {"4,8,8": ["lego"], "2,16,8": ["lego"]}
 LR_SCENE = "lego_DS4_PlRes8_8"
@@ -153,6 +154,8 @@ def test_refine_losses_match_jax(root):
 def _saved(logdir):
     """What a logdir holds: the newest rolling checkpoints, exp_info and
     the LR scene's rolling plane file with its Adam leaves (numpy)."""
+    # the plane file may be native: let JAX's library finish building
+    jax_native_ready()
     ck = _load(find_latest_checkpoint(logdir, sr=False))
     sr = _load(find_latest_checkpoint(logdir, sr=True))
     info = _load(os.path.join(logdir, "exp_info.pkl"))

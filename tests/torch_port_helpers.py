@@ -3,6 +3,9 @@ decoder weights and geometry handed to both the JAX reference
 (nvsr_tpu) and the PyTorch port (nvsr_tpu_torch)."""
 
 import dataclasses
+import importlib
+import os
+import time
 
 import numpy as np
 import torch
@@ -17,6 +20,26 @@ FLAGSHIP = JaxTriplaneConfig(dec_channels=128, num_plane_channels=48,
                              skip_connect_every=3, proj_combination="avg",
                              viewdir_proj_combination="concat_pos",
                              compute_dtype="bfloat16")
+
+
+def jax_native_ready(timeout_s=120):
+    """Whether the JAX package's native store library loads, waiting up
+    to timeout_s while another process may still be building it.
+    nvsr_tpu's builder links into native/build/ in place, so a process
+    that opens the file mid-link sees a partial library and its probe
+    stays False; reloading the module (nvsr_tpu.planes_store holds the
+    same module object) clears that probe, and once the file is whole
+    the next probe loads it."""
+    from nvsr_tpu.utils import native_store
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "native", "nvsr_native.cpp")
+    deadline = time.monotonic() + timeout_s
+    while not native_store.available():
+        if not os.path.isfile(src) or time.monotonic() > deadline:
+            return False
+        time.sleep(0.5)
+        importlib.reload(native_store)
+    return True
 
 
 def port_cfg(jcfg) -> TriplaneConfig:
