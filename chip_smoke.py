@@ -3,19 +3,25 @@
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:  python3 chip_smoke.py  (add --profile to also trace one
 HR/SR and one LR training step, one frame through each of the points
-and from-rays entries, one Experiment eval view, and one LR and one
-HR/SR Experiment iteration, with torch.profiler)
+and from-rays entries, one bicubic frame through the cubic megakernel,
+one Experiment eval view, and one LR and one HR/SR Experiment
+iteration, with torch.profiler)
 
 Phases (any failure raises and the script exits non-zero):
   0. build and load the native plane-store library (native/nvsr_native.cpp
      into build/nvsr_tpu_torch/native/), printing its path and build
      seconds: the Experiment phases write their plane files through it,
      and there is no fallback to npz;
-  1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc;
+  1. build every kernel from nvsr_tpu_torch/csrc/ with nvcc, printing
+     each kernel's registers and spill bytes from ptxas;
   2. hold each kernel against its plain PyTorch version at the flagship
      pass shapes (one 8192-ray block each: coarse S=16 sigma-only on 200^2
      LR planes, fine S=32 full decode on 800^2 SR planes), and time both
-     with CUDA events;
+     with CUDA events; the Python mirror of the fused kernel's shared
+     memory (kernels.triplane_layout_bytes) against the library's own
+     figure; every entry of triplane_render.cu and fused_decode against
+     its plain version at the point counts of EDGE_COUNTS, the head and
+     tail of its ring of feature stages (edge_checks);
   3. the main path once, as a user calls it: seeded random LR planes
      3x48x200^2, EDSR x4 (256 wide, 32 blocks, bf16) super-resolution,
      then an 800x800 render_image in 16x16 ray tiles, 16+16 samples,
@@ -208,12 +214,17 @@ rank of phases 11 and 12 (see cli_rank). python3 chip_smoke.py --phase 12
 (--controls: also its record runs, see tp_phase), and prints no result
 lines.
 
-python3 chip_smoke.py --times [ROOT ...] checks nothing: it times the
-decoder's kernels, the plane sampler's kernels beside F.grid_sample, the
-row gather, the flagship frame and the f32 bicubic frame for the package
-under each ROOT (default: this checkout), each in its own process, to
-compare builds in one call (e.g. a parent checkout unpacked under build/,
-then this one).
+python3 chip_smoke.py --times [--no-frames] [ROOT ...] checks nothing:
+it times the fused kernel's seven entries and fused_decode, the plane
+sampler's kernels beside F.grid_sample, the row gather, and (without
+--no-frames) the flagship frame, the bf16 bicubic frame through the
+fused kernel and the f32 bicubic frame for the package under each ROOT
+(default: this checkout), each in its own process, to compare builds in
+one call (e.g. --times build/parent . . build/parent, a parent checkout
+unpacked under build/). Each line also gives the digests of the fused
+entries' and fused_decode's outputs on fixed inputs (equal digests: the
+same bits) and, for a build made in that process, each kernel's
+registers and spill bytes.
 """
 
 import dataclasses
@@ -1117,10 +1128,12 @@ EVAL_FULL = dict(image=800, channels=48, res=200, view_res=32,
                  sr_hidden=256, sr_blocks=32, sr_scale=4, reps=10)
 
 
-def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True):
+def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True, profile=False):
     """Phase 6 (see the module docstring). With on_card=False (a CPU
     rehearsal at a small `w`) the kernel checks, launch counts and timings
-    are skipped and every pass runs the plain versions."""
+    are skipped and every pass runs the plain versions. profile: after the
+    timed frames, one bf16 frame through the cubic megakernel under
+    torch.profiler."""
     import numpy as np
     import torch
     from nvsr_tpu_torch import kernels
@@ -1234,6 +1247,9 @@ def bicubic_phase(dev, c2w, w=EVAL_FULL, on_card=True):
                   f"{GATE_PSNR_MIN_DB})")
             if p_kp < GATE_PSNR_MIN_DB:
                 fail("bicubic frame: kernel and plain version disagree")
+            if profile:
+                profile_run("bicubic frame through the cubic megakernel",
+                            lambda: frame(fns))
 
         # the gate scene with plane_interp 'bicubic', and its own f32
         # (bilinear) config through the non-fused tiled route
@@ -1304,15 +1320,12 @@ def nvcc_release():
     return m.group(1) if m else out.strip()
 
 
-def triplane_digests(dev):
-    """{entry: sha256 of its [R, S, 4] f32 output} for the four ray entries
-    of triplane_render.cu on fixed inputs made on the host from seed 11
-    (4096 rays x 16 depths on 3x48x200^2 planes, the flagship decoder)."""
-    import hashlib
-
+def digest_inputs(dev):
+    """The fixed inputs of the digests, made on the host from seed 11:
+    (table 3x48x200^2, the flagship decoder packed, origins, dirs, z
+    [4096, 16], view rows [4096, cvp], geom)."""
     import numpy as np
     import torch
-    from nvsr_tpu_torch import kernels
     from nvsr_tpu_torch.models.triplane import TriplaneConfig, make_rot_mats
     from nvsr_tpu_torch.ops import fused_render
     gen = torch.Generator().manual_seed(11)
@@ -1332,6 +1345,20 @@ def triplane_digests(dev):
     box = np.stack([[-2, -2, -2, -np.pi, -np.pi / 2],
                     [2, 2, 2, np.pi, np.pi / 2]]).astype(np.float32)
     geom = fused_render.geometry_args(box, make_rot_mats(3))
+    return table, packed, origins, dirs, z, view, geom
+
+
+def sha256_of(t):
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def triplane_digests(dev):
+    """{entry: sha256 of its [R, S, 4] f32 output} for the four ray entries
+    of triplane_render.cu on digest_inputs() (4096 rays x 16 depths on
+    3x48x200^2 planes, the flagship decoder)."""
+    from nvsr_tpu_torch import kernels
+    table, packed, origins, dirs, z, view, geom = digest_inputs(dev)
     digests = {}
     for cubic in (False, True):
         for so in (False, True):
@@ -1341,9 +1368,204 @@ def triplane_digests(dev):
                                           view, geom, align_corners=True,
                                           avg=True, sigma_only=so,
                                           cubic=cubic)
-            digests[name] = hashlib.sha256(
-                out.cpu().numpy().tobytes()).hexdigest()
+            digests[name] = sha256_of(out)
     return digests
+
+
+def kernel_digests(dev):
+    """triplane_digests() and, on the same inputs as points (the 65,536
+    points' plane coordinates and view rows), the sha256 of the three
+    grids entries' outputs and of fused_decode's on their tap pairs: what
+    --times-of prints, so that parent and change can be held bit for bit
+    in one call under any nvcc."""
+    import torch
+    from nvsr_tpu_torch import kernels
+    from nvsr_tpu_torch.ops import fused_decoder, fused_render
+    digests = triplane_digests(dev)
+    table, packed, origins, dirs, z, view, geom = digest_inputs(dev)
+    r, s = z.shape
+    grids = torch.stack(fused_render.plane_grids(origins, dirs, z, geom)
+                        ).contiguous()
+    view_pts = view[:, None, :].expand(r, s, packed.cvp).reshape(
+        r * s, packed.cvp).contiguous()
+    for name, so, v1 in (("triplane_render_grids_full", False, False),
+                         ("triplane_render_grids_sigma_only", True, False),
+                         ("triplane_render_grids_v1", False, True)):
+        out = kernels.triplane_render_grids(
+            table, packed, grids, None if so else view_pts,
+            align_corners=True, avg=True, sigma_only=so, v1=v1)
+        digests[name] = sha256_of(out)
+    rows, ty, view32, pk = decoder_inputs((table, packed, grids, view_pts))
+    digests["fused_decode"] = sha256_of(fused_decoder.fused_decode(
+        rows, ty, view32, pk, avg=True))
+    return digests
+
+
+# point counts at the edges of the fused kernel's pipeline: one point, one
+# and two 64-point shares with and without a remainder, one tile on each of
+# the H100's 132 SMs and one point more, two tiles on each less one point
+EDGE_COUNTS = (1, 64, 65, 128, 129, 132 * 128, 132 * 128 + 1,
+               2 * 132 * 128 - 1)
+
+
+def edge_checks(dev, counts=EDGE_COUNTS):
+    """Every entry of triplane_render.cu and fused_decode against its
+    plain version, through the public wrappers, on the first n points of
+    digest_inputs() (one depth a ray) for each n in counts: the stage
+    ring's head and tail, at the tolerances of the flagship block -> {entry:
+    worst (max, mean) error}. On the CPU the wrappers run the plain
+    versions (a rehearsal of the shapes)."""
+    import torch
+    from nvsr_tpu_torch.ops import fused_decoder, fused_render
+    table, packed, origins, dirs, z, view, geom = digest_inputs(dev)
+    s = z.shape[1]
+    worst = {}
+
+    def held(name, out, ref, n):
+        if tuple(out.shape) != tuple(ref.shape):
+            fail(f"{name} at N={n}: shape {tuple(out.shape)}, plain "
+                 f"{tuple(ref.shape)}")
+        err = (out - ref).abs()
+        e_max, e_mean = err.max().item(), err.mean().item()
+        if not (math.isfinite(e_max) and e_max <= MAX_ABS_TOL
+                and e_mean <= MEAN_ABS_TOL):
+            fail(f"{name} at N={n} disagrees with its plain version: max "
+                 f"{e_max:.3e}, mean {e_mean:.3e}")
+        w = worst.setdefault(name, [0.0, 0.0])
+        w[0], w[1] = max(w[0], e_max), max(w[1], e_mean)
+
+    for n in counts:
+        o = origins.repeat_interleave(s, 0)[:n].contiguous()
+        d = dirs.repeat_interleave(s, 0)[:n].contiguous()
+        zz = z.reshape(-1, 1)[:n].contiguous()
+        v = view.repeat_interleave(s, 0)[:n].contiguous()
+        for cubic in (False, True):
+            for so in (False, True):
+                name = ("triplane_render_" + ("cubic_" if cubic else "")
+                        + ("sigma_only" if so else "full"))
+                kw = dict(align_corners=True, avg=True, sigma_only=so,
+                          cubic=cubic)
+                out, _ = fused_render.fused_render_rays(
+                    table, packed, o, d, zz, None if so else v, geom, **kw)
+                held(name, out, fused_render.fused_render_reference(
+                    table, packed, o, d, zz, None if so else v, geom, **kw),
+                    n)
+        grids = torch.stack(fused_render.plane_grids(o, d, zz, geom)
+                            ).reshape(3, n, 2).contiguous()
+        for name, so, form in (
+                ("triplane_render_grids_full", False, "v2"),
+                ("triplane_render_grids_sigma_only", True, "v2"),
+                ("triplane_render_grids_v1", False, "v1")):
+            kw = dict(align_corners=True, avg=True, sigma_only=so, form=form)
+            vv = None if so else v
+            out, _ = fused_render.tiled_render_chunked(table, packed, grids,
+                                                       vv, **kw)
+            held(name, out, fused_render.tiled_render_chunked_reference(
+                table, packed, grids, vv, **kw), n)
+        rows, ty, view32, pk = decoder_inputs((table, packed, grids, v))
+        held("fused_decode",
+             fused_decoder.fused_decode(rows, ty, view32, pk, avg=True),
+             fused_decoder.fused_decode_reference(rows, ty, view32, pk,
+                                                  avg=True), n)
+    if table.is_cuda:
+        torch.cuda.synchronize()
+    return {k: tuple(w) for k, w in worst.items()}
+
+
+def layout_check(kernels):
+    """kernels.triplane_layout_bytes, the Python mirror of the fused
+    kernel's shared-memory layout, against the library's own figure, from
+    the narrowest feature parts to the widest that fused_render.supports
+    admits -> the widest total."""
+    widest = 0
+    for cp in (16, 32, 48, 64):
+        for cvp in (0, 16, 48, 64):
+            for cubic in (False, True):
+                mine = kernels.triplane_layout_bytes(cp, cvp, cubic)
+                lib = kernels.library_layout_bytes(cp, cvp, cubic)
+                if mine != lib:
+                    fail(f"the layout mirror drifted: cp {cp}, cvp {cvp}, "
+                         f"cubic {cubic}: {mine} bytes, the library "
+                         f"{lib}")
+                widest = max(widest, lib)
+    if widest > kernels.SMEM_BLOCK_LIMIT:
+        fail(f"the fused kernel's layout takes {widest} bytes, over "
+             f"{kernels.SMEM_BLOCK_LIMIT}")
+    return widest
+
+
+# csrc/triplane_render.cu's kernel template <kSigmaOnly, kCubic, kGrids,
+# kV1> -> its C entry
+TRIPLANE_INSTANCES = {
+    "0000": "triplane_render_full", "1000": "triplane_render_sigma_only",
+    "0100": "triplane_render_cubic_full",
+    "1100": "triplane_render_cubic_sigma_only",
+    "0010": "triplane_render_grids_full",
+    "1010": "triplane_render_grids_sigma_only",
+    "0011": "triplane_render_grids_v1"}
+
+
+def demangled(mangled):
+    """A kernel's name from its mangled one: the first identifier after
+    the namespaces (anonymous ones, `nvsr`), with its integer and bool
+    template arguments."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while True:
+        m = re.match(r"(\d+)", mangled[pos:])
+        if not m:
+            break
+        n = int(m.group(1))
+        start = pos + m.end()
+        ident, pos = mangled[start:start + n], start + n
+        if not (ident.startswith("_GLOBAL__N") or ident == "nvsr"):
+            name = ident
+            break
+    targs = re.match(r"I((?:L[bij]\d+E)+)E", mangled[pos:])
+    if targs and name != mangled:
+        name += "<" + ",".join(re.findall(r"L[bij](\d+)E",
+                                          targs.group(1))) + ">"
+    return name
+
+
+def ptxas_usage(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
+    `nvcc -Xptxas -v` output of kernels.build(verbose=True); the
+    triplane_render.cu instances under their C entries' names."""
+    import re
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            mangled = m.group(1)
+            t = re.search(r"triplane_render_kernelILb(\d)ELb(\d)ELb(\d)"
+                          r"ELb(\d)E", mangled)
+            name = (TRIPLANE_INSTANCES["".join(t.groups())] if t
+                    else demangled(mangled))
+            usage.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def build_logged(kernels):
+    """kernels.build(verbose=True) with its compiler output captured ->
+    (library paths, ptxas_usage of what this call compiled)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        libs = kernels.build(verbose=True)
+    return libs, ptxas_usage(buf.getvalue())
 
 
 def points_fn(params, cfg, planes, plane_view, box, sigma_only, form="v2",
@@ -4069,27 +4291,34 @@ def sampler_times(dev, planes_lr, planes_sr, fine_args, box):
             for name, ts in zip(fns, interleaved_ms(tuple(fns.values())))}
 
 
-def times_of(root):
-    """--times-of ROOT: the decoder's kernels at the main path's shapes
-    (CUDA events, mean of 20 after 3 warm-ups) and the plane sampler's
+def times_of(root, frames=True):
+    """--times-of ROOT: the fused kernel's entries and the standalone
+    decoder at the main path's shapes (CUDA events, mean of 20 after 3
+    warm-ups: the four ray entries on one flagship block, the three grids
+    entries and fused_decode on its points), the plane sampler's kernels
     (sampler_times), the row gather and torch.index_select at
-    gather_dma.py's workload (medians of 25 in turns), the flagship frame
-    and the same frame in bicubic with an f32 decoder (the cubic sampler
-    route; medians of 10) for the package under ROOT, with no checks ->
-    one JSON line. The cubic entries run on the bilinear pass's points."""
+    gather_dma.py's workload (medians of 25 in turns), the flagship frame,
+    the same frame in bicubic through the fused kernel and with an f32
+    decoder (the cubic sampler route; medians of 10) for the package under
+    ROOT, with no checks -> one JSON line. It also gives the digests of
+    every fused entry's and fused_decode's output on fixed inputs
+    (kernel_digests) and each kernel's registers and spill bytes from the
+    build's ptxas report. The cubic entries run on the bilinear pass's
+    points. frames=False (--no-frames): no frames."""
     import torch
     sys.path.insert(0, root)
     from nvsr_tpu_torch import kernels
     from nvsr_tpu_torch.models.plane_sr import apply_plane_sr
     from nvsr_tpu_torch.ops import fused_decoder, fused_render, gather_dma
     from nvsr_tpu_torch.render import render_image
-    kernels.build()
+    _, usage = build_logged(kernels)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     (cfg, sr_cfg, dec_c, dec_f, sr_params, planes_lr, plane_view, box, occ,
      ro, rd, rcfg) = flagship(dev)
-    out = {"root": root, "package": kernels.__file__}
+    out = {"root": root, "package": kernels.__file__, "registers": usage}
     with torch.no_grad():
+        out["digests"] = kernel_digests(dev)
         planes_sr = apply_plane_sr(sr_params, sr_cfg, planes_lr)
         ca, fa = pass_args(cfg, dec_c, dec_f, planes_lr, planes_sr,
                            plane_view, box, occ, ro, rd)
@@ -4103,11 +4332,14 @@ def times_of(root):
                 cubic=cubic), warmup=3, reps=20)
         blk = grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr,
                           plane_view, box, occ, ro, rd)
-        tab, pk, grids, view = blk["fine"]
-        for name, form in (("grids_fine", "v2"), ("grids_v1", "v1")):
+        for name, key, so, form in (
+                ("grids_coarse", "coarse", True, "v2"),
+                ("grids_fine", "fine", False, "v2"),
+                ("grids_v1", "fine", False, "v1")):
+            tab, pk, grids, view = blk[key]
             out[name] = cuda_ms(lambda: fused_render.tiled_render_chunked(
                 tab, pk, grids, view, align_corners=True, avg=True,
-                sigma_only=False, form=form), warmup=3, reps=20)
+                sigma_only=so, form=form), warmup=3, reps=20)
         dec_in = decoder_inputs(blk["fine"])
         out["fused_decode"] = cuda_ms(lambda: fused_decoder.fused_decode(
             *dec_in, avg=True), warmup=3, reps=20)
@@ -4123,33 +4355,31 @@ def times_of(root):
         out["gather"], out["index_select"] = (t_k[len(t_k) // 2],
                                               t_lib[len(t_lib) // 2])
         del table, idx
-        pf_c = tiled_fn(dec_c, cfg, planes_lr, plane_view, box, True)
-        pf_f = tiled_fn(dec_f, cfg, planes_sr, plane_view, box, False)
-        ts = frame_ms(lambda: render_image(
-            pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
-            tile=16).fine.rgb, reps=10)
-        out["frame_median"], out["frame_min"], out["frame_max"] = (
-            ts[len(ts) // 2], ts[0], ts[-1])
-        cfg32 = dataclasses.replace(cfg, plane_interp="bicubic",
-                                    compute_dtype=None)
-        pf_c = tiled_fn(dec_c, cfg32, planes_lr, plane_view, box, True)
-        pf_f = tiled_fn(dec_f, cfg32, planes_sr, plane_view, box, False)
-        ts = frame_ms(lambda: render_image(
-            pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
-            tile=16).fine.rgb, reps=10)
-        out["f32_bicubic_frame_median"] = ts[len(ts) // 2]
-        out["f32_bicubic_frame_min"] = ts[0]
-        out["f32_bicubic_frame_max"] = ts[-1]
+        frame_cfgs = {
+            "frame": cfg,
+            "bicubic_frame": dataclasses.replace(cfg, plane_interp="bicubic"),
+            "f32_bicubic_frame": dataclasses.replace(
+                cfg, plane_interp="bicubic", compute_dtype=None),
+        } if frames else {}
+        for key, fcfg in frame_cfgs.items():
+            pf_c = tiled_fn(dec_c, fcfg, planes_lr, plane_view, box, True)
+            pf_f = tiled_fn(dec_f, fcfg, planes_sr, plane_view, box, False)
+            ts = frame_ms(lambda: render_image(
+                pf_c, pf_f, ro, rd, rcfg, near=2.0, far=6.0, occ_aabb=occ,
+                tile=16).fine.rgb, reps=10)
+            out[key + "_median"], out[key + "_min"], out[key + "_max"] = (
+                ts[len(ts) // 2], ts[0], ts[-1])
     print(json.dumps(out))
 
 
-def compare(roots):
-    """--times [ROOT ...]: times_of for each ROOT (default: this
-    checkout), each in its own process, in the order given (e.g. parent,
-    change, change, parent)."""
+def compare(roots, frames=True):
+    """--times [--no-frames] [ROOT ...]: times_of for each ROOT (default:
+    this checkout), each in its own process, in the order given (e.g.
+    parent, change, change, parent)."""
     for root in roots or [ROOT]:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--times-of", os.path.abspath(root)],
+                            "--times-of", os.path.abspath(root)]
+                           + ([] if frames else ["--no-frames"]),
                            capture_output=True, text=True, timeout=900)
         print(r.stdout.strip().splitlines()[-1] if r.returncode == 0 else
               f"{root}: exit {r.returncode}\n{r.stdout[-3000:]}"
@@ -4196,9 +4426,13 @@ def card_setup():
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    libs = kernels.build(verbose=True)
+    libs, usage = build_logged(kernels)
+    regs = "; ".join(
+        f"{k} {u.get('registers')} registers, spills "
+        f"{u.get('spill_stores')}/{u.get('spill_loads')} B"
+        for k, u in sorted(usage.items()))
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
-          f"({card})")
+          f"({card}); ptxas: {regs}")
     return card, torch.device("cuda", 0)
 
 
@@ -4222,6 +4456,19 @@ def main(profile=False):
         # -- 2. kernels vs plain at the pass shapes ----------------------
         entries, _ = render_checks(cfg, dec_c, dec_f, planes_lr, planes_sr,
                                    plane_view, box, occ, ro, rd)
+        widest = layout_check(kernels)
+        print(f"[layout] the Python mirror of the fused kernel's shared "
+              f"memory equals the library's figure for cp, cvp in 16..64, "
+              f"bilinear and bicubic; widest {widest} bytes of "
+              f"{kernels.SMEM_BLOCK_LIMIT}")
+        t0 = time.perf_counter()
+        worst = edge_checks(dev)
+        print(f"[edges] every fused entry and fused_decode against its "
+              f"plain version at N = {EDGE_COUNTS} in "
+              f"{time.perf_counter() - t0:.1f} s; worst (max, mean) error "
+              + ", ".join(f"{k} ({a:.3e}, {b:.3e})"
+                          for k, (a, b) in worst.items())
+              + f" (tol max {MAX_ABS_TOL}, mean {MEAN_ABS_TOL})")
 
         # -- 3. the main path once ---------------------------------------
         frame_kernels = (kernels.triplane_render_full,
@@ -4296,7 +4543,8 @@ def main(profile=False):
                                profile=profile, host_waits=host_waits))
 
     # -- 6. bicubic planes ------------------------------------------------
-    entries.update(bicubic_phase(dev, camera([3.8, 0.5, 0.7])))
+    entries.update(bicubic_phase(dev, camera([3.8, 0.5, 0.7]),
+                                 profile=profile))
 
     # -- 7. the points entry ----------------------------------------------
     entries.update(points_phase(dev, camera([3.8, 0.5, 0.7]),
@@ -4352,8 +4600,9 @@ if __name__ == "__main__":
         tp_phase(device, card=card_name, controls="--controls" in argv)
         print(card_name)
     elif argv[:1] == ["--times-of"]:
-        times_of(argv[1])
+        times_of(argv[1], frames="--no-frames" not in argv)
     elif argv[:1] == ["--times"]:
-        compare(argv[1:])
+        compare([a for a in argv[1:] if a != "--no-frames"],
+                frames="--no-frames" not in argv)
     else:
         main(profile="--profile" in argv)

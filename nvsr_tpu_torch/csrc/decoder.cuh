@@ -15,10 +15,30 @@
 // layers of width 128) at 989 TFLOP/s bf16, while its inputs are ~1 KB a
 // point; the kernels that hold it are bound by operations. What the design
 // does about it (hopper-kernels guide §1):
-//   * persistent, warp-specialised blocks: one block per SM walks the
-//     128-point tiles t = blockIdx.x, +gridDim.x, ...; two consumer
-//     warpgroups own 64 points each (one wgmma M tile) and one producer
-//     warp streams the weights;
+//   * persistent, warp-specialised blocks of four warpgroups (512
+//     threads), one block per SM, walking the 128-point tiles t =
+//     blockIdx.x, +gridDim.x, ... as 64-point shares (shares 2j and 2j + 1
+//     are tile j's halves):
+//       - two producer warpgroups (kProducerWgs): their first seven warps
+//         gather each share's features (the Job) into a ring of kStages
+//         feature stages in shared memory, in the wgmma A layout; the
+//         last warp streams the weights;
+//       - the two consumer warpgroups after them decode the even and the
+//         odd shares, one wgmma M tile of 64 points each;
+//     so the next shares are gathered while the tensor cores decode this
+//     one. A stage is handed over by mbarriers: "full" once every gather
+//     thread has written it (count kGatherThreads), "empty" once each warp
+//     of its consumer has completed the last wgmma that reads it (count
+//     4): in the full decode the rgb branch's last feature read, in the
+//     sigma-only decode the density branch's. Why seven gather warps: the
+//     gather is latency-bound; with three (one producer warpgroup, 384
+//     threads) the bicubic coarse pass was gather-bound and slower than
+//     the serial design (PERF.md §6);
+//   * setmaxnreg moves registers from the producer warpgroups
+//     (kProducerRegs) to the consumers (kConsumerRegs), whose 64 f32
+//     accumulators, 32 packed bf16 A registers and head outputs live in
+//     registers through every layer; at 512 threads a thread starts with
+//     at most 128;
 //   * the weights, repacked once on the host (ops/fused_render.py
 //     ::pack_decoder, PackedDecoder.ws) into the no-swizzle K-major layout
 //     the wgmma B descriptor reads, are streamed once per 128 points in
@@ -33,9 +53,11 @@
 //     memory, accumulated into the same registers;
 //   * the heads (8 KB, resident) are wgmma.m64n16k16 from the registers;
 //     the sigma head runs right after the density branch.
-// setmaxnreg is not used: at one block of kThreads threads per SM every
-// thread may already hold the register count the compiler gives the
-// kernel, and the producer's few registers are not worth a rebalance.
+// Shared memory (make_layout): the weight ring 64 KB, the heads 8 KB, the
+// barriers, kStages feature stages of 64 * (4 cp + cvp) bf16 and one tap
+// scratch of the gather warps: 215,168 bytes at cp = cvp = 64 in bicubic,
+// the widest that fused_render.supports admits, under the 232,448 a block
+// may use (kernels.triplane_layout_bytes mirrors it).
 
 #pragma once
 
@@ -51,11 +73,26 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWidth = 128;                 // decoder width
 constexpr int kHeadCols = 16;               // rgb cols 0:3, sigma col 3
-constexpr int kWgPoints = 64;               // points of a consumer warpgroup
+constexpr int kWgPoints = 64;               // points of a share
 constexpr int kConsumers = 2;               // consumer warpgroups a block
 constexpr int kTilePoints = kConsumers * kWgPoints;
 constexpr int kWgThreads = 128;
-constexpr int kThreads = kConsumers * kWgThreads + 32;  // + producer warp
+// the producer warpgroups: their last warp streams the weights, the
+// others gather
+constexpr int kProducerWgs = 2;
+constexpr int kProducerWarps = 4 * kProducerWgs;
+constexpr int kWeightWarp = kProducerWarps - 1;
+constexpr int kGatherThreads = 32 * (kProducerWarps - 1);
+constexpr int kThreads = (kProducerWgs + kConsumers) * kWgThreads;
+constexpr int kGatherBar = 1;               // named barrier of the gather
+constexpr int kStages = 3;                  // feature stages in flight
+// registers a thread after setmaxnreg; they must fit the SM's 65,536
+constexpr int kProducerRegs = 104;
+constexpr int kConsumerRegs = 152;
+static_assert(kProducerWgs * kWgThreads * kProducerRegs +
+                      kConsumers * kWgThreads * kConsumerRegs <=
+                  65536,
+              "setmaxnreg counts exceed the register file");
 constexpr int kStepRows = 16;               // K rows of one wgmma
 constexpr int kStepBytes = kStepRows * kWidth * 2;      // 4 KB
 constexpr int kSliceSteps = 4;              // a ring slice: 64 K rows
@@ -63,7 +100,7 @@ constexpr int kSliceBytes = kSliceSteps * kStepBytes;   // 16 KB
 constexpr int kRing = 4;                    // ring slices in flight
 constexpr int kHeadStepBytes = kStepRows * kHeadCols * 2;
 constexpr int kHeadBytes = 2 * (kWidth / kStepRows) * kHeadStepBytes;
-// a feature part of a warpgroup, [width / 8][8 point groups][8][8] bf16:
+// a feature part of a share, [width / 8][8 point groups][8][8] bf16:
 // bytes of one 8-channel group of its 64 points
 constexpr int kKGroupBytes = kWgPoints * 16;
 
@@ -113,8 +150,9 @@ struct Layout {
   unsigned feat_bytes, scratch_bytes, total;
 };
 
-// tap_ints / tap_floats: per (point, plane) scratch of a gather phase
-inline Layout make_layout(int cp, int cvp, int tap_ints, int tap_floats) {
+// tap_ints / tap_floats: per (point, plane) scratch of the gather
+__host__ __device__ inline Layout make_layout(int cp, int cvp, int tap_ints,
+                                              int tap_floats) {
   Layout L;
   L.cp = cp;
   L.cvp = cvp;
@@ -123,14 +161,14 @@ inline Layout make_layout(int cp, int cvp, int tap_ints, int tap_floats) {
   unsigned off = 0;
   L.ring = off;    off += kRing * kSliceBytes;
   L.heads = off;   off += kHeadBytes;
-  L.bars = off;    off = align128(off + 2 * kRing * 8);
-  L.feat = off;    off += kConsumers * L.feat_bytes;
-  L.scratch = off; off += kConsumers * L.scratch_bytes;
+  L.bars = off;    off = align128(off + 2 * (kRing + kStages) * 8);
+  L.feat = off;    off += kStages * L.feat_bytes;
+  L.scratch = off; off += L.scratch_bytes;
   L.total = off;
   return L;
 }
 
-// a consumer warpgroup's feature parts f0, f1, f2, comb, view
+// a share's feature parts f0, f1, f2, comb, view
 struct Parts {
   unsigned char* p[5];
 };
@@ -211,12 +249,23 @@ struct HeadOut {
   float4 lo, hi;
 };
 
-// The decoder on the warpgroup's 64 points, whose feature parts (f0, f1,
-// f2, comb, view; make_parts) are in shared memory from address feat.
+// the last layer of a branch of nl layers that reads the feature parts:
+// layer 0 and every layer after a skip layer
+__device__ inline int last_feature_layer(int nl, int every) {
+  int last = 0;
+  for (int ln = 1; ln < nl; ++ln)
+    if (is_skip(every, ln - 1)) last = ln;
+  return last;
+}
+
+// The decoder on a share's 64 points, whose feature parts (f0, f1, f2,
+// comb, view; make_parts) are in the feature stage at address feat. Once
+// the last wgmma that reads the stage has completed, lane 0 of each warp
+// arrives on the stage's empty barrier `release`.
 template <bool kSigmaOnly>
 __device__ inline HeadOut decode(const Decoder& D, uint32_t feat, int cp,
                                  int cvp, uint32_t heads, Ring& ring,
-                                 bool leader, int lane) {
+                                 bool leader, int lane, uint32_t release) {
   float acc[64];
   uint32_t act[32];
   float sig[8], rgb[8];
@@ -224,6 +273,10 @@ __device__ inline HeadOut decode(const Decoder& D, uint32_t feat, int cp,
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) sig[i] = rgb[i] = 0.0f;
+  // the branch whose last feature read frees the stage
+  const int rel_br = kSigmaOnly ? 0 : 1;
+  const int rel_ln = last_feature_layer(kSigmaOnly ? D.n_density : D.n_rgb,
+                                        D.skip_every);
   int li = 0;
 #pragma unroll
   for (int br = 0; br < (kSigmaOnly ? 1 : 2); ++br) {
@@ -254,6 +307,7 @@ __device__ inline HeadOut decode(const Decoder& D, uint32_t feat, int cp,
         }
       }
       ring.layer_end(ln == nl - 1, leader);
+      if (br == rel_br && ln == rel_ln && lane == 0) mbar_arrive(release);
       // epilogue: act = bf16(relu(acc + bias)); acc[4j + e] is row
       // lane / 4 (+8 for e >= 2), col 8j + 2 (lane % 4) + (e & 1)
       const float* bias = D.b + li * kWidth + 2 * (lane & 3);
@@ -302,12 +356,20 @@ __device__ inline HeadOut decode(const Decoder& D, uint32_t feat, int cp,
   return o;
 }
 
+// the first point of this block's share k: tile blockIdx.x + (k / 2) *
+// gridDim.x, half k % 2
+__device__ inline long long share_base(long long k) {
+  return (blockIdx.x + (k / kConsumers) * gridDim.x) * kTilePoints +
+         (k % kConsumers) * kWgPoints;
+}
+
 // The persistent kernel body. Job gives the points' features and takes
 // their outputs:
-//   job.gather(wt, base, parts, scratch, bar): the 128 threads (wt) of a
-//     consumer warpgroup write the bf16 features of points base .. base +
-//     63 (zeros past the end) into `parts`; it may sync the warpgroup with
-//     named_sync(bar, kWgThreads);
+//   job.gather(gt, base, parts, scratch): the kGatherThreads gather
+//     threads (gt) write the bf16 features of points base .. base + 63
+//     (zeros past the end) into `parts`, with `scratch` (the layout's tap
+//     scratch) for their own use; it may sync them with
+//     named_sync(kGatherBar, kGatherThreads);
 //   job.store(n, o): (r, g, b, sigma) of point n < N.
 template <bool kSigmaOnly, class Job>
 __device__ inline void run_decoder(const Job& job, const Decoder& D,
@@ -316,12 +378,20 @@ __device__ inline void run_decoder(const Job& job, const Decoder& D,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t sbase = smem_u32(smem);
   const uint32_t full = sbase + L.bars, empty = full + 8 * kRing;
+  const uint32_t ffull = empty + 8 * kRing, fempty = ffull + 8 * kStages;
   const long long tiles = (N + kTilePoints - 1) / kTilePoints;
+  const long long my_tiles =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long shares = kConsumers * my_tiles;
   const int slices = D.d_slices + (kSigmaOnly ? 0 : D.r_slices);
   if (tid == 0) {
     for (int s = 0; s < kRing; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ffull + 8 * s, kGatherThreads);
+      mbar_init(fempty + 8 * s, kWgThreads / 32);
     }
     mbar_init_fence();
   }
@@ -332,42 +402,64 @@ __device__ inline void run_decoder(const Job& job, const Decoder& D,
   fence_async_smem();
   __syncthreads();
 
-  if (warp == kConsumers * 4) {
-    // the producer: the stream's slices, once per tile, into the ring
-    if (lane == 0) {
-      const unsigned char* src = reinterpret_cast<const unsigned char*>(D.ws);
-      int slot = 0;
-      uint32_t phase = 0;
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        for (int i = 0; i < slices; ++i) {
-          mbar_wait(empty + 8 * slot, phase ^ 1u);
-          mbar_arrive_expect_tx(full + 8 * slot, kSliceBytes);
-          bulk_load(sbase + L.ring + slot * kSliceBytes,
-                    src + (size_t)i * kSliceBytes, kSliceBytes,
-                    full + 8 * slot);
-          if (++slot == kRing) {
-            slot = 0;
-            phase ^= 1u;
+  if (warp < kProducerWarps) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWeightWarp) {
+      // the weights: the stream's slices, once per tile, into the ring
+      if (lane == 0) {
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(D.ws);
+        int slot = 0;
+        uint32_t phase = 0;
+        for (long long t = 0; t < my_tiles; ++t) {
+          for (int i = 0; i < slices; ++i) {
+            mbar_wait(empty + 8 * slot, phase ^ 1u);
+            mbar_arrive_expect_tx(full + 8 * slot, kSliceBytes);
+            bulk_load(sbase + L.ring + slot * kSliceBytes,
+                      src + (size_t)i * kSliceBytes, kSliceBytes,
+                      full + 8 * slot);
+            if (++slot == kRing) {
+              slot = 0;
+              phase ^= 1u;
+            }
           }
+        }
+      }
+    } else {
+      // the gather: every share in order into the stage ring
+      unsigned char* scratch = smem + L.scratch;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long k = 0; k < shares; ++k) {
+        mbar_wait(fempty + 8 * stage, phase ^ 1u);
+        job.gather(tid, share_base(k),
+                   make_parts(smem + L.feat + stage * L.feat_bytes, L.cp),
+                   scratch);
+        // the stage's writes, visible to the consumers' wgmma
+        fence_async_smem();
+        mbar_arrive(ffull + 8 * stage);
+        // every gather thread is done with the scratch before the next
+        // share's taps overwrite it
+        named_sync(kGatherBar, kGatherThreads);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1u;
         }
       }
     }
   } else {
-    const int wg = warp >> 2, wt = tid & (kWgThreads - 1);
-    unsigned char* feat = smem + L.feat + wg * L.feat_bytes;
-    const Parts parts = make_parts(feat, L.cp);
-    unsigned char* scratch = smem + L.scratch + wg * L.scratch_bytes;
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = (warp - kProducerWarps) >> 2;
+    const int wt = tid & (kWgThreads - 1);
     Ring ring = {sbase + L.ring, full, empty, 0, 0, 0, 0, 0u, false};
     const bool leader = wt == 0;
-    const int bar = 1 + wg;
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const long long base = t * kTilePoints + wg * kWgPoints;
-      job.gather(wt, base, parts, scratch, bar);
-      fence_async_smem();
-      named_sync(bar, kWgThreads);
-      const HeadOut o = decode<kSigmaOnly>(D, smem_u32(feat), L.cp, L.cvp,
-                                           sbase + L.heads, ring, leader,
-                                           lane);
+    for (long long k = wg; k < shares; k += kConsumers) {
+      const int stage = (int)(k % kStages);
+      const long long base = share_base(k);
+      mbar_wait(ffull + 8 * stage, (uint32_t)((k / kStages) & 1));
+      const HeadOut o = decode<kSigmaOnly>(
+          D, sbase + L.feat + stage * L.feat_bytes, L.cp, L.cvp,
+          sbase + L.heads, ring, leader, lane, fempty + 8 * stage);
       if ((lane & 3) == 0) {
         const long long n = base + (warp & 3) * 16 + (lane >> 2);
         if (n < N) job.store(n, o.lo);

@@ -22,10 +22,11 @@
 // decoder's ~0.26 MFLOP: at 3.35 TB/s and 989 TFLOP/s bf16 the bytes are
 // the larger bound counted per byte of the rows, but the kernel reads only
 // the cp lanes of each half, so the decoder's operations bound it. The
-// design is decoder.cuh's persistent kernel: per consumer warpgroup and
-// 64 points, one thread per (point, 8 channels) loads each plane's two
-// 16-byte halves, lerps and writes the bf16 features in the wgmma A
-// layout into shared memory; then the warpgroup runs the decoder.
+// design is decoder.cuh's persistent kernel: for each 64-point share the
+// gather warps, one thread per (point, 8 channels), load each plane's two
+// 16-byte halves, lerp and write the bf16 features in the wgmma A layout
+// into a feature stage in shared memory, while the consumer warpgroups
+// decode the shares gathered before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +48,7 @@ struct Params {
   float* out;
 };
 
-// the features of one consumer warpgroup's 64 points (decoder.cuh's Job)
+// the features of a share's 64 points (decoder.cuh's Job)
 struct Lerp {
   const Params& P;              // the kernel's __grid_constant__ parameter
   long long N;
@@ -58,11 +59,11 @@ struct Lerp {
     dst[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 
-  __device__ void gather(int wt, long long base, const Parts& parts,
-                         unsigned char*, int) const {
+  __device__ void gather(int gt, long long base, const Parts& parts,
+                         unsigned char*) const {
     // y-lerped features of 8 channels of one point per item
     const int chunks = P.cp / 8;
-    for (int item = wt; item < kWgPoints * chunks; item += kWgThreads) {
+    for (int item = gt; item < kWgPoints * chunks; item += kGatherThreads) {
       const int i = item / chunks, c8 = (item % chunks) * 8;
       const long long n = base + i;
       float comb[8];
@@ -98,7 +99,7 @@ struct Lerp {
     }
     // the f32 view row, rounded to bf16
     const int vch = P.cvp / 8;
-    for (int item = wt; item < kWgPoints * vch; item += kWgThreads) {
+    for (int item = gt; item < kWgPoints * vch; item += kGatherThreads) {
       const int i = item / vch, c8 = (item % vch) * 8;
       const long long n = base + i;
       __align__(16) bf16 vo[8];

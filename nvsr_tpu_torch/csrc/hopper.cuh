@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX: wgmma (bf16 in, f32
 // accumulated in registers), 1-D bulk copies into shared memory, mbarriers,
-// named barriers and proxy fences. Shared by the decoder of decoder.cuh.
+// named barriers, proxy fences and setmaxnreg. Shared by the decoder of
+// decoder.cuh.
 
 #pragma once
 
@@ -77,6 +78,21 @@ __device__ inline void named_sync(int id, int threads) {
 // async proxy (wgmma operand reads)
 __device__ inline void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- register rebalancing between warpgroups -------------------------------
+
+// setmaxnreg: every warp of the warpgroup executes it with the same count
+// (a multiple of 8 in 24..256). dec gives registers back to the SM's pool,
+// inc waits until the pool holds enough and takes them.
+template <int kRegs>
+__device__ inline void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ inline void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 // -- wgmma ------------------------------------------------------------------

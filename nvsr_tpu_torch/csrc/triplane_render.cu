@@ -57,18 +57,22 @@
 // per-chunk region DMAs, hat-weight gather matmuls, region clamps and their
 // overflow repair) exists because Mosaic cannot gather in VMEM; here a
 // point's taps are plain 16-byte loads, so none of it is carried over.
-// The kernel is decoder.cuh's persistent, warp-specialised block; each
-// consumer warpgroup takes 64 points of a 128-point tile:
+// The kernel is decoder.cuh's persistent, warp-specialised block: the
+// gather warps fill a ring of feature stages, 64 points a share, while
+// two consumer warpgroups decode the shares already gathered, so the
+// loads of the next points are in flight while the tensor cores work.
+// The gather of a share runs in two phases:
 //   phase 0: one thread per (point, plane) computes the tap offsets and
-//            weights into the warpgroup's shared scratch (bicubic: 4 row
+//            weights into the gather's shared scratch (bicubic: 4 row
 //            and 4 col offsets, 16 weights);
-//   phase 1: one thread per (point, 8 channels) loads the 12 taps (3 planes
-//            x 4; bicubic 48, row by row) as 16-byte vectors and writes f0,
+//   phase 1: one thread per (point, 8 channels) loads the taps as 16-byte
+//            vectors (bilinear: the 12 of its 3 planes at once; bicubic:
+//            kCubicRowsInFlight rows of a plane at once) and writes f0,
 //            f1, f2 and comb (bf16), plus the view row, straight into the
-//            wgmma A layout in shared memory;
-//   then the decoder: wgmma with the activations in registers, the weights
-//            streamed through a ring of shared-memory slices (decoder.cuh).
-// The next tile's gather does not overlap this tile's decode.
+//            wgmma A layout of the share's stage;
+//   then a consumer warpgroup decodes the stage: wgmma with the
+//            activations in registers, the weights streamed through a
+//            ring of shared-memory slices (decoder.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,13 +108,17 @@ template <bool kCubic> struct TapShape {
   static constexpr int kFloats = kCubic ? 16 : 3;  // cubic: w[row][col]
 };
 
+// bicubic taps in flight a gather thread: rows of a plane's 4x4 window
+// (all 4 gained nothing on the H100 and need more registers; PERF.md §6)
+constexpr int kCubicRowsInFlight = 2;
+
 // offset from y0 of the r-th bicubic window row in feature-sum order:
 // y0, y0+1, y0-1, y0+2
 __device__ inline int cubic_row(int r) {
   return r == 2 ? -1 : (r == 3 ? 2 : r);
 }
 
-// The gather of one consumer warpgroup's 64 points (decoder.cuh's Job)
+// The gather of a share's 64 points (decoder.cuh's Job)
 template <bool kSigmaOnly, bool kCubic, bool kGrids, bool kV1>
 struct Gather {
   static constexpr int kInts = TapShape<kCubic>::kInts;
@@ -122,15 +130,15 @@ struct Gather {
     *reinterpret_cast<float4*>(P.out + n * 4) = o;
   }
 
-  __device__ void gather(int wt, long long base, const Parts& parts,
-                         unsigned char* scratch, int bar) const {
+  __device__ void gather(int gt, long long base, const Parts& parts,
+                         unsigned char* scratch) const {
     int* taps = reinterpret_cast<int*>(scratch);
     float* wts = reinterpret_cast<float*>(scratch) + kWgPoints * 3 * kInts;
     const int cp = P.cp;
     const bool ac = P.align_corners != 0;
 
     // phase 0: tap offsets (cells of the [3*H*W, Cp] table) and weights
-    for (int item = wt; item < kWgPoints * 3; item += kWgThreads) {
+    for (int item = gt; item < kWgPoints * 3; item += kGatherThreads) {
       const int i = item / 3, pl = item % 3;
       const long long n = base + i;
       int* t = taps + item * kInts;
@@ -203,45 +211,58 @@ struct Gather {
         }
       }
     }
-    named_sync(bar, kWgThreads);
+    named_sync(kGatherBar, kGatherThreads);
 
-    // phase 1: features of 8 channels of one point per item
+    // phase 1: features of 8 channels of one point per item; the bilinear
+    // taps of all three planes, or kCubicRowsInFlight rows of a bicubic
+    // window, are loaded before their sums
     const int chunks = cp / 8;
-    for (int item = wt; item < kWgPoints * chunks; item += kWgThreads) {
+    for (int item = gt; item < kWgPoints * chunks; item += kGatherThreads) {
       const int i = item / chunks, c8 = (item % chunks) * 8;
       float comb[8];
+      uint4 lin[12];
+      if (!kCubic) {
+#pragma unroll
+        for (int k = 0; k < 12; ++k)
+          lin[k] = __ldg(reinterpret_cast<const uint4*>(
+              P.table + (size_t)taps[(i * 3 + k / 4) * kInts + k % 4] * cp +
+              c8));
+      }
 #pragma unroll
       for (int pl = 0; pl < 3; ++pl) {
         const int* t = taps + (i * 3 + pl) * kInts;
         const float* wv = wts + (i * 3 + pl) * kFloats;
         float f[8];
         if (kCubic) {
-          for (int r = 0; r < 4; ++r) {
-            uint4 q[4];
+          constexpr int kRows = kCubicRowsInFlight;
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              q[c] = __ldg(reinterpret_cast<const uint4*>(
-                  P.table + ((size_t)t[r] + t[4 + c]) * cp + c8));
-            const bf16* v = reinterpret_cast<const bf16*>(q);  // [c * 8 + e]
-            const float* w = wv + r * 4;
+          for (int r0 = 0; r0 < 4; r0 += kRows) {
+            uint4 q[4 * kRows];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              float row = __fmul_rn(w[0], __bfloat162float(v[e]));
+            for (int k = 0; k < 4 * kRows; ++k)
+              q[k] = __ldg(reinterpret_cast<const uint4*>(
+                  P.table + ((size_t)t[r0 + k / 4] + t[4 + k % 4]) * cp +
+                  c8));
 #pragma unroll
-              for (int c = 1; c < 4; ++c)
-                row = __fadd_rn(
-                    row, __fmul_rn(w[c], __bfloat162float(v[c * 8 + e])));
-              f[e] = r == 0 ? row : __fadd_rn(f[e], row);
+            for (int r = r0; r < r0 + kRows; ++r) {
+              // row r's taps: [c * 8 + e]
+              const bf16* v = reinterpret_cast<const bf16*>(q + 4 * (r - r0));
+              const float* w = wv + r * 4;
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                float row = __fmul_rn(w[0], __bfloat162float(v[e]));
+#pragma unroll
+                for (int c = 1; c < 4; ++c)
+                  row = __fadd_rn(
+                      row, __fmul_rn(w[c], __bfloat162float(v[c * 8 + e])));
+                f[e] = r == 0 ? row : __fadd_rn(f[e], row);
+              }
             }
           }
         } else {
           const float w0 = wv[0], w1 = wv[1], ty = wv[2];
-          uint4 q[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            q[k] = __ldg(reinterpret_cast<const uint4*>(
-                P.table + (size_t)t[k] * cp + c8));
-          const bf16* v = reinterpret_cast<const bf16*>(q);  // [k * 8 + e]
+          // [k * 8 + e]
+          const bf16* v = reinterpret_cast<const bf16*>(lin + 4 * pl);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             float top =
@@ -277,7 +298,7 @@ struct Gather {
     }
     if (!kSigmaOnly) {
       const int vch = P.cvp / 8;
-      for (int item = wt; item < kWgPoints * vch; item += kWgThreads) {
+      for (int item = gt; item < kWgPoints * vch; item += kGatherThreads) {
         const int i = item / vch, c8 = (item % vch) * 8;
         const long long n = base + i;
         uint4 q = make_uint4(0u, 0u, 0u, 0u);
@@ -338,6 +359,17 @@ Params make_params(const void* table, int H, int W, int cp,
 }
 
 }  // namespace
+
+// Bytes of dynamic shared memory a launch takes for feature parts of cp
+// (and view rows of cvp: 0 for the sigma-only entries) channels, bilinear
+// or bicubic (mirrored by kernels.triplane_layout_bytes).
+extern "C" int triplane_layout_bytes(int cp, int cvp, int cubic) {
+  return (int)(cubic ? make_layout(cp, cvp, TapShape<true>::kInts,
+                                   TapShape<true>::kFloats)
+                     : make_layout(cp, cvp, TapShape<false>::kInts,
+                                   TapShape<false>::kFloats))
+      .total;
+}
 
 // C interface (ctypes). Returns a cudaError_t: 0 when the launch was
 // accepted. geom_host: 24 host floats (box min, box max, rot[p][c][1:3]);

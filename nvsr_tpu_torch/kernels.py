@@ -149,6 +149,38 @@ KERNELS = (triplane_render_full, triplane_render_sigma_only,
            triplane_render_grids_v1, fused_decode, gather_rows)
 
 
+# csrc/decoder.cuh's shared-memory layout (make_layout): the weight ring
+# (kRing slices of 16 KB), the resident heads (8 KB), the ring's and the
+# feature stages' mbarriers, kStages feature stages of 64 points x (4 cp +
+# cvp) bf16 and the gather's tap scratch of 64 points x 3 planes x (ints +
+# floats) x 4 bytes (bilinear 4 + 3, bicubic 8 + 16), each region padded
+# to 128 bytes
+_RING_BYTES, _HEAD_BYTES, _RING_SLICES, _STAGES = 4 * 16384, 8192, 4, 3
+SMEM_BLOCK_LIMIT = 232448     # dynamic shared memory a block may use, H100
+
+
+def _align128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def triplane_layout_bytes(cp: int, cvp: int, cubic: bool) -> int:
+    """Dynamic shared memory of a triplane_render.cu launch with feature
+    parts of cp channels and view rows of cvp (0 for the sigma-only
+    entries): the mirror of the library's triplane_layout_bytes."""
+    ints, floats = (8, 16) if cubic else (4, 3)
+    head = _align128(_RING_BYTES + _HEAD_BYTES
+                     + 2 * (_RING_SLICES + _STAGES) * 8)
+    return (head + _STAGES * _align128(64 * (4 * cp + cvp) * 2)
+            + _align128(64 * 3 * (ints + floats) * 4))
+
+
+def library_layout_bytes(cp: int, cvp: int, cubic: bool) -> int:
+    """The same figure from the built library itself (needs nvcc)."""
+    fn = _load("triplane_render.cu").triplane_layout_bytes
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_int
+    return fn(cp, cvp, int(cubic))
+
+
 def _check(t, name, dtype, device, shape=None, aligned=False):
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous {dtype} tensor on "

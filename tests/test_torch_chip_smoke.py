@@ -75,6 +75,20 @@ def test_points_phase_rehearses_on_the_cpu():
                            on_card=False) == {}
 
 
+def test_edge_checks_rehearse_on_the_cpu():
+    """chip_smoke.py's pipeline-edge checks on the CPU, where the public
+    wrappers run the plain versions: every fused entry and fused_decode at
+    point counts that end inside a share, on a share and past one."""
+    cs = _chip_smoke()
+    worst = cs.edge_checks("cpu", counts=(1, 64, 65, 129))
+    assert sorted(worst) == sorted(
+        ["triplane_render_full", "triplane_render_sigma_only",
+         "triplane_render_cubic_full", "triplane_render_cubic_sigma_only",
+         "triplane_render_grids_full", "triplane_render_grids_sigma_only",
+         "triplane_render_grids_v1", "fused_decode"])
+    assert all(err == (0.0, 0.0) for err in worst.values())
+
+
 def test_experiment_phase_rehearses_on_the_cpu():
     """chip_smoke.py's Experiment phase on the CPU at a tiny size: the
     synthetic scene and the JAX-layout logdir written by the port, the
