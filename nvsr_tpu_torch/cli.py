@@ -13,7 +13,18 @@ and the eval-mode override from the trained experiment's dumped config
 JAX package's layout, so either package resumes or evaluates what the
 other wrote. The device is the card unless `--device` names another.
 `--profile-dir` traces the run with torch.profiler into that directory
-(a Chrome trace), in place of the JAX package's jax.profiler trace.
+(a Chrome trace), in place of the JAX package's jax.profiler trace. The
+trace carries the program's spans (`utils/tracing.py`) as `nvsr.*`
+annotations beside the operators and kernels: `nvsr.train_iteration`
+over each training iteration, with its phases `nvsr.input` (the draw,
+the rays and the target to the device, the planes lent and the rays
+tightened), `nvsr.occupancy` (the occupancy update), `nvsr.forward`
+(with `nvsr.plane_sr` and `nvsr.render.coarse` / `nvsr.render.fine`
+inside), `nvsr.backward` (the gradients), `nvsr.reduce` (the data
+group's all_reduce, under a mesh) and `nvsr.optimizer` (the planes' Adam,
+the gated module steps); around them `nvsr.flush_metrics` (the queued
+metrics' one device-to-host copy), `nvsr.evaluate` and `nvsr.save` (the
+planes and the checkpoints written).
 
 Under torchrun (RANK, WORLD_SIZE and LOCAL_RANK set) each process is one
 rank of a process group, for a config with `experiment.data_parallel`

@@ -137,6 +137,7 @@ from nvsr_tpu_torch.utils.coverage import PlaneCoverage
 from nvsr_tpu_torch.utils.io import (PreemptedError, check_run_signature,
                                      load_pickle, save_pickle)
 from nvsr_tpu_torch.utils.logging import ExperimentLogger, RunningScores
+from nvsr_tpu_torch.utils.tracing import span
 
 RUNNING_MEAN_LOGS = ["psnr", "SR_psnr_gain", "planes_SR", "fine_loss",
                      "rays_per_sec", "fine_psnr", "loss", "coarse_loss",
@@ -1339,149 +1340,177 @@ class Experiment:
         train_step, the planes' Adam step, the gated decoder and SR
         steps at the end of a virtual batch. The metrics are queued on
         the device. Returns the buffer's new scenes when it was redrawn,
-        else None."""
+        else None.
+
+        Under a profiler the iteration is a `train_iteration` span (args:
+        the iteration and its kind, "lr", "sr" or "consistency") whose
+        children follow one another: `input` (the draw, the rays and the
+        target to the device; for a planes model a second one after
+        `occupancy`: the planes lent, the rays tightened to the occupied
+        box), `occupancy`, train_step's `forward` and `backward`,
+        `reduce` (under a mesh) and `optimizer`."""
+        with span("train_iteration", iteration=iteration) as root:
+            return self._train_iteration(iteration, root)
+
+    def _train_iteration(self, iteration: int, root):
         cfg = self.cfg
         first_vb = iteration % self.virtual_batch_size == 0
         last_vb = (iteration % self.virtual_batch_size
                    == self.virtual_batch_size - 1)
-        scene_id, img_idx = self.image_sampler.sample()
-        sr_iter = scene_id in self.scene_coupler.downsample_couples
-        img, pose, h, w, focal, ds_f = self.dataset.item(img_idx)
-        consistency_iter = bool(self.im_inconsistency_loss_w) and \
-            scene_id in self.dataset.val_only_scene_ids
-        coupler_ds = self.scene_coupler.ds_factor
-        if consistency_iter:
-            # the HR scene's rays, averaged over ds x ds patches, against
-            # its LR couple's pixels
-            h, w, focal = h * coupler_ds, w * coupler_ds, focal * coupler_ds
-            ds_f = ds_f // coupler_ds
-        num_rays = cfg.get_path("nerf.train.num_random_rays", 4096)
-        train_tc = None if consistency_iter \
-            else self.train_tile_cfg(scene_id, num_rays)
-        if consistency_iter:
-            rows, cols, target = choose_patch_pixels(
-                self.host_rng, img, num_rays, coupler_ds)
-        elif train_tc is not None:
-            rows, cols, target = choose_tile_pixels(
-                self.host_rng, img, num_rays, tile=self.train_tile_shape())
-        else:
-            rows, cols, target = choose_random_pixels(
-                self.host_rng, img, num_rays)
-        scene_type = self.dataset.scene_types.get(scene_id, "synt")
-        sc_cfg = cfg.dataset[scene_type]
-        focal_arg = (tuple(float(f) for f in focal)
-                     if isinstance(focal, (tuple, list, np.ndarray))
-                     else float(focal))
-        rays = build_sampled_rays(
-            self._to_device(np.asarray(pose, dtype=np.float32)),
-            self._to_device(rows), self._to_device(cols), float(h),
-            float(w), focal_arg, downsampling_offset(ds_f),
-            float(sc_cfg["near"]), float(sc_cfg["far"]),
-            use_viewdirs=cfg.nerf.get("use_viewdirs", True),
-            no_ndc=bool(sc_cfg["no_ndc"]))
-        target = self._to_device(np.asarray(target, dtype=np.float32))
-
         if first_vb:
+            # before the forward: a virtual batch's unstepped sums are freed
             if self.decoder_opt is not None:
                 self.decoder_opt.zero()
             if self.sr_opt is not None:
                 self.sr_opt.zero()
+        with span("input"):
+            scene_id, img_idx = self.image_sampler.sample()
+            sr_iter = scene_id in self.scene_coupler.downsample_couples
+            img, pose, h, w, focal, ds_f = self.dataset.item(img_idx)
+            consistency_iter = bool(self.im_inconsistency_loss_w) and \
+                scene_id in self.dataset.val_only_scene_ids
+            root.set(kind="consistency" if consistency_iter
+                     else "sr" if sr_iter else "lr")
+            coupler_ds = self.scene_coupler.ds_factor
+            if consistency_iter:
+                # the HR scene's rays, averaged over ds x ds patches,
+                # against its LR couple's pixels
+                h, w, focal = (h * coupler_ds, w * coupler_ds,
+                               focal * coupler_ds)
+                ds_f = ds_f // coupler_ds
+            num_rays = cfg.get_path("nerf.train.num_random_rays", 4096)
+            train_tc = None if consistency_iter \
+                else self.train_tile_cfg(scene_id, num_rays)
+            if consistency_iter:
+                rows, cols, target = choose_patch_pixels(
+                    self.host_rng, img, num_rays, coupler_ds)
+            elif train_tc is not None:
+                rows, cols, target = choose_tile_pixels(
+                    self.host_rng, img, num_rays,
+                    tile=self.train_tile_shape())
+            else:
+                rows, cols, target = choose_random_pixels(
+                    self.host_rng, img, num_rays)
+            scene_type = self.dataset.scene_types.get(scene_id, "synt")
+            sc_cfg = cfg.dataset[scene_type]
+            focal_arg = (tuple(float(f) for f in focal)
+                         if isinstance(focal, (tuple, list, np.ndarray))
+                         else float(focal))
+            rays = build_sampled_rays(
+                self._to_device(np.asarray(pose, dtype=np.float32)),
+                self._to_device(rows), self._to_device(cols), float(h),
+                float(w), focal_arg, downsampling_offset(ds_f),
+                float(sc_cfg["near"]), float(sc_cfg["far"]),
+                use_viewdirs=cfg.nerf.get("use_viewdirs", True),
+                no_ndc=bool(sc_cfg["no_ndc"]))
+            target = self._to_device(np.asarray(target, dtype=np.float32))
+            rcfg = self._mode_render_cfg("train", scene_id)
+            if self.planes_model:
+                member = int(self.host_rng.integers(
+                    self.model_cfg.ensemble_size))
+            else:
+                flags = StepFlags(
+                    consistency_iter=consistency_iter,
+                    im_inconsistency_loss_w=self.im_inconsistency_loss_w
+                    or 0.0,
+                    ds_factor=coupler_ds,
+                    share_coarse_fine=self.share_coarse_fine)
+                rays, target, generator = self._shard_batch(
+                    rays, target, self.render_generator)
 
-        rcfg = self._mode_render_cfg("train", scene_id)
         if self.planes_model:
-            member = int(self.host_rng.integers(self.model_cfg.ensemble_size))
-            self._maybe_update_occupancy(scene_id, iteration)
-            planes = self.planes_buffer.lend(scene_id)
-            occ_aabb = self._occ_aabb_for(scene_id, planes)
-            if occ_aabb is not None:
-                rays = tighten_bundle(
-                    rays, occ_aabb,
-                    tile_rays=train_tc.tile_rays if train_tc is not None
-                    else None)
-            sr_loss_cfg = cfg.get_path(
-                "super_resolution.training.loss",
-                "fine") if self.sr_experiment else "both"
-            trains_lr = any(m in self.what2train for m in ("decoder",
-                                                           "LR_planes"))
-            occ = self.occupancy_cfg
-            flags = StepFlags(
-                sr_iter=sr_iter and self.sr_params is not None,
-                consistency_iter=consistency_iter,
-                detach_lr_planes=cfg.get_path("nerf.train.detach_LR_planes",
-                                              False),
-                apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse", False),
-                compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
-                compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
-                rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
-                im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
-                ds_factor=coupler_ds,
-                share_coarse_fine=self.share_coarse_fine,
-                member=member,
-                plane_rank=planes.rank,
-                plane_resolution=self._scene_plane_res(scene_id),
-                train_planes=self.planes_buffer.optimize,
-                train_decoder=self.decoder_opt is not None,
-                train_sr=self.sr_opt is not None,
-                track_surface_aabb=(occ is not None
-                                    and occ["mode"] == "surface"
-                                    and self.planes_buffer.optimize),
-                surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
-                tile_cfg=train_tc)
-            rays, target, generator = self._shard_batch(
-                rays, target, self.render_generator)
+            with span("occupancy"):
+                self._maybe_update_occupancy(scene_id, iteration)
+            with span("input"):
+                planes = self.planes_buffer.lend(scene_id)
+                occ_aabb = self._occ_aabb_for(scene_id, planes)
+                if occ_aabb is not None:
+                    rays = tighten_bundle(
+                        rays, occ_aabb,
+                        tile_rays=train_tc.tile_rays if train_tc is not None
+                        else None)
+                sr_loss_cfg = cfg.get_path(
+                    "super_resolution.training.loss",
+                    "fine") if self.sr_experiment else "both"
+                trains_lr = any(m in self.what2train
+                                for m in ("decoder", "LR_planes"))
+                occ = self.occupancy_cfg
+                flags = StepFlags(
+                    sr_iter=sr_iter and self.sr_params is not None,
+                    consistency_iter=consistency_iter,
+                    detach_lr_planes=cfg.get_path(
+                        "nerf.train.detach_LR_planes", False),
+                    apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse",
+                                               False),
+                    compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
+                    compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
+                    rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
+                    im_inconsistency_loss_w=self.im_inconsistency_loss_w
+                    or 0.0,
+                    ds_factor=coupler_ds,
+                    share_coarse_fine=self.share_coarse_fine,
+                    member=member,
+                    plane_rank=planes.rank,
+                    plane_resolution=self._scene_plane_res(scene_id),
+                    train_planes=self.planes_buffer.optimize,
+                    train_decoder=self.decoder_opt is not None,
+                    train_sr=self.sr_opt is not None,
+                    track_surface_aabb=(occ is not None
+                                        and occ["mode"] == "surface"
+                                        and self.planes_buffer.optimize),
+                    surf_weight_eps=float((occ or {}).get("weight_eps",
+                                                          0.01)),
+                    tile_cfg=train_tc)
+                rays, target, generator = self._shard_batch(
+                    rays, target, self.render_generator)
             metrics, grads = train_step(
                 self.decoder_coarse, self.decoder_fine, self.sr_params,
                 planes.params(), self._on_device("box", scene_id, planes.box),
                 rays, target, generator,
                 model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
                 flags=flags, mesh=self._tp)
-            metrics, grads = reduce_step(self.mesh, metrics, grads)
-            if flags.track_surface_aabb:
-                # device tensors, fetched in one copy at the commit
-                self._occ_window.setdefault(scene_id, []).append(
-                    (metrics.pop("surf_w"), metrics.pop("surf_wx"),
-                     metrics.pop("surf_wx2")))
-            if "planes" in grads:
-                self.planes_buffer.apply_grads(scene_id, grads["planes"])
         else:
-            flags = StepFlags(
-                consistency_iter=consistency_iter,
-                im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
-                ds_factor=coupler_ds,
-                share_coarse_fine=self.share_coarse_fine)
-            rays, target, generator = self._shard_batch(
-                rays, target, self.render_generator)
             metrics, grads = train_step_baseline(
                 self.decoder_coarse, self.decoder_fine, rays, target,
                 generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
                 flags=flags, enc_cfg=self._enc_for(scene_id))
-            metrics, grads = reduce_step(self.mesh, metrics, grads)
+        if self.mesh is not None:
+            with span("reduce"):
+                metrics, grads = reduce_step(self.mesh, metrics, grads)
+        if self.planes_model and flags.track_surface_aabb:
+            # device tensors, fetched in one copy at the commit
+            self._occ_window.setdefault(scene_id, []).append(
+                (metrics.pop("surf_w"), metrics.pop("surf_wx"),
+                 metrics.pop("surf_wx2")))
 
-        # module-gated optimizer steps
-        confinements = self.dataset.module_confinements.get(scene_id, [])
-        if self.decoder_opt is not None:
-            self.decoder_opt.accumulate(
-                {k: grads[k] for k in ("dc", "df")
-                 if k in grads and k in self.decoder_opt.params})
-        if self.sr_opt is not None and "sr" in grads:
-            self.sr_opt.accumulate(grads["sr"])
-        new_drawn = self.planes_buffer.step_cadence() \
-            if self.planes_model else None
-        if last_vb:
+        with span("optimizer"):
+            if self.planes_model and "planes" in grads:
+                self.planes_buffer.apply_grads(scene_id, grads["planes"])
+            # module-gated optimizer steps
+            confinements = self.dataset.module_confinements.get(scene_id,
+                                                                [])
             if self.decoder_opt is not None:
-                decoder_step = "decoder" not in confinements
-                if "SR" in self.what2train and cfg.get_path(
-                        "nerf.train.separate_decoder_sr", False):
-                    decoder_step &= not sr_iter
-                if decoder_step and (self.decoder_training
-                                     or not self.planes_model):
-                    self.decoder_opt.step()
-                else:
-                    self.decoder_opt.zero()
-            if (self.sr_opt is not None and sr_iter
-                    and "SR" not in confinements):
-                self.sr_opt.step()
-
+                self.decoder_opt.accumulate(
+                    {k: grads[k] for k in ("dc", "df")
+                     if k in grads and k in self.decoder_opt.params})
+            if self.sr_opt is not None and "sr" in grads:
+                self.sr_opt.accumulate(grads["sr"])
+            new_drawn = self.planes_buffer.step_cadence() \
+                if self.planes_model else None
+            if last_vb:
+                if self.decoder_opt is not None:
+                    decoder_step = "decoder" not in confinements
+                    if "SR" in self.what2train and cfg.get_path(
+                            "nerf.train.separate_decoder_sr", False):
+                        decoder_step &= not sr_iter
+                    if decoder_step and (self.decoder_training
+                                         or not self.planes_model):
+                        self.decoder_opt.step()
+                    else:
+                        self.decoder_opt.zero()
+                if (self.sr_opt is not None and sr_iter
+                        and "SR" not in confinements):
+                    self.sr_opt.step()
         self._pending_metrics.append(
             (iteration, consistency_iter, sr_iter,
              torch.stack([metrics[k] for k in self._METRIC_STACK])))
@@ -1513,8 +1542,9 @@ class Experiment:
         flushed iterations that were not consistency iterations."""
         if not self._pending_metrics:
             return [], []
-        vals = torch.stack([m for (_, _, _, m) in self._pending_metrics]
-                           ).cpu().numpy()
+        with span("flush_metrics"):
+            vals = torch.stack([m for (_, _, _, m) in self._pending_metrics]
+                               ).cpu().numpy()
         losses, psnrs = [], []
         for (it, cons, sr_iter, _), row in zip(self._pending_metrics, vals):
             loss_val = float(row[0])
@@ -1728,7 +1758,8 @@ class Experiment:
         if self.planes_model:
             self.planes_buffer.draw_scenes()
         if self.eval_mode:
-            self.evaluate()
+            with span("evaluate"):
+                self.evaluate()
             return
         self._update_active_scenes()
 
@@ -1779,7 +1810,8 @@ class Experiment:
                 flush_window()
                 last_evaluated = iteration
                 t0 = time.time()
-                self.evaluate(iteration)
+                with span("evaluate", iteration=iteration):
+                    self.evaluate(iteration)
                 evaluation_time = time.time() - t0
                 if self.planes_model:
                     self.planes_buffer.draw_scenes()
@@ -1851,12 +1883,13 @@ class Experiment:
                             "Exiting run %f since a newer run has started."
                             % self.run_time_signature)
                 recently_saved = time.time()
-                if self.planes_model and self.planes_buffer.optimize:
-                    self.planes_buffer.save_params()
-                    if save_as_best:
-                        self.planes_buffer.save_params(as_best=True)
-                self.experiment_info["start_i"] = iteration + 1
-                self.save_checkpoints(iteration, as_best=save_as_best)
+                with span("save", iteration=iteration):
+                    if self.planes_model and self.planes_buffer.optimize:
+                        self.planes_buffer.save_params()
+                        if save_as_best:
+                            self.planes_buffer.save_params(as_best=True)
+                    self.experiment_info["start_i"] = iteration + 1
+                    self.save_checkpoints(iteration, as_best=save_as_best)
                 if quit_training:
                     print("Done training: no improvement for %d iters"
                           % (iteration

@@ -26,6 +26,7 @@ from nvsr_tpu_torch.ops.rendering import RenderOutputs, volume_render
 from nvsr_tpu_torch.ops.sampling import (hierarchical_z_vals,
                                          stratified_z_vals)
 from nvsr_tpu_torch.parallel.sharding import all_reduce_
+from nvsr_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,10 +161,6 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
     resampling weights) from the graph. With rcfg.mip, each pass samples
     one more edge than it has intervals and its point fn gets pts=None
     (it casts the frustums between the z edges itself)."""
-    z_vals = stratified_z_vals(rays.near, rays.far,
-                               rcfg.num_coarse + int(rcfg.mip),
-                               lindisp=rcfg.lindisp, perturb=rcfg.perturb,
-                               generator=generator)
     aux: dict = {}
 
     def run_pass(point_fn, z):
@@ -186,17 +183,23 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
             generator=generator, white_background=rcfg.white_background,
             mip=rcfg.mip, return_z=rcfg.keep_z)
 
-    rf_c = run_pass(point_fn_coarse, z_vals)
-    if rcfg.stop_coarse_grad:
-        rf_c = rf_c.detach()
-    out_c = composite(rf_c, z_vals)
+    with span("render.coarse"):
+        z_vals = stratified_z_vals(rays.near, rays.far,
+                                   rcfg.num_coarse + int(rcfg.mip),
+                                   lindisp=rcfg.lindisp,
+                                   perturb=rcfg.perturb, generator=generator)
+        rf_c = run_pass(point_fn_coarse, z_vals)
+        if rcfg.stop_coarse_grad:
+            rf_c = rf_c.detach()
+        out_c = composite(rf_c, z_vals)
     out_f = None
     if rcfg.num_fine > 0 and point_fn_fine is not None:
-        z_fine = hierarchical_z_vals(z_vals, out_c.weights,
-                                     rcfg.num_fine + int(rcfg.mip),
-                                     det=not rcfg.perturb,
-                                     generator=generator, mip=rcfg.mip)
-        out_f = composite(run_pass(point_fn_fine, z_fine), z_fine)
+        with span("render.fine"):
+            z_fine = hierarchical_z_vals(z_vals, out_c.weights,
+                                         rcfg.num_fine + int(rcfg.mip),
+                                         det=not rcfg.perturb,
+                                         generator=generator, mip=rcfg.mip)
+            out_f = composite(run_pass(point_fn_fine, z_fine), z_fine)
     return RenderResult(out_c, out_f, aux)
 
 

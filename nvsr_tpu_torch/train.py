@@ -33,6 +33,7 @@ from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
                                    make_baseline_point_fn,
                                    make_triplane_point_fn, render_rays)
 from nvsr_tpu_torch.utils.io import EmptyState, ScaleByAdamState
+from nvsr_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +142,27 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     the trainable route); grads has the JAX layout {"planes", "dc",
     "df", "sr"} for the trained groups, each the structure of its input.
     """
+    with span("forward"):
+        metrics, diff, total = _forward(
+            decoder_coarse, decoder_fine, sr_params, plane_params, box, rays,
+            target, generator, model_cfg, sr_cfg, rcfg, flags, mesh)
+    with span("backward"):
+        leaves = _leaves(diff)
+        grads = {}
+        if leaves:
+            # a loss that reaches no trained group (e.g. only a detached
+            # coarse loss) has no graph: every gradient is zero, as in JAX
+            gl = [None] * len(leaves) if not total.requires_grad else \
+                torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
+                                      for x, g in zip(leaves, gl)])
+    return metrics, grads
+
+
+def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
+             rays, target, generator, model_cfg, sr_cfg, rcfg, flags, mesh):
+    """train_step's forward -> (detached metrics, the trained groups'
+    inputs {"planes", "dc", "df", "sr"}, the weighted loss)."""
     if flags.track_surface_aabb and not rcfg.keep_z:
         rcfg = dataclasses.replace(rcfg, keep_z=True)
     diff = {}
@@ -171,9 +193,10 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
         sr_in = planes_pos.detach() if flags.detach_lr_planes \
             else planes_pos
         # the SR net's noise is of the planes, not of the batch's rows
-        fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
-                                     generator=draws.base(generator),
-                                     mesh=mesh)
+        with span("plane_sr"):
+            fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
+                                         generator=draws.base(generator),
+                                         mesh=mesh)
         if flags.apply_sr_to_coarse:
             coarse_planes = fine_planes
 
@@ -205,25 +228,22 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
         fine_loss = img2mse(rgb_fine, target[..., :3])
     rendering_loss = coarse_loss + fine_loss
     total = _loss_weight(flags) * rendering_loss
-
-    leaves = _leaves(diff)
-    grads = {}
-    if leaves:
-        # a loss that reaches no trained group (e.g. only a detached
-        # coarse loss) has no graph: every gradient is zero, as in JAX
-        gl = [None] * len(leaves) if not total.requires_grad else \
-            torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
-                                  for x, g in zip(leaves, gl)])
-    metrics = {"loss": rendering_loss, "coarse_loss": coarse_loss,
-               "fine_loss": fine_loss, "psnr": mse2psnr(rendering_loss),
-               "fine_psnr": mse2psnr(fine_loss)}
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
     if out.aux and "overflow_frac" in out.aux:
         metrics["overflow_frac"] = out.aux["overflow_frac"]
     if flags.track_surface_aabb:
         metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
-    return metrics, grads
+    return metrics, diff, total
+
+
+def _step_metrics(rendering_loss, coarse_loss, fine_loss) -> dict:
+    """A step's detached loss terms and PSNRs."""
+    with torch.no_grad():
+        return {"loss": rendering_loss.detach(),
+                "coarse_loss": coarse_loss.detach(),
+                "fine_loss": fine_loss.detach(),
+                "psnr": mse2psnr(rendering_loss),
+                "fine_psnr": mse2psnr(fine_loss)}
 
 
 _MEAN_METRICS = ("loss", "coarse_loss", "fine_loss")
@@ -302,33 +322,34 @@ def train_step_baseline(decoder_coarse, decoder_fine, rays: RayBundle,
     rgb is averaged over ds_factor^2 patches before the loss, and the
     loss is weighted by im_inconsistency_loss_w. Returns (metrics, grads)
     as train_step does, grads {"dc", "df"?}."""
-    dc = _inputs(decoder_coarse, True)
-    diff = {"dc": dc}
-    df = dc
-    if not flags.share_coarse_fine:
-        df = diff["df"] = _inputs(decoder_fine, True)
-    out = render_rays(baseline_point_fn(dc, mlp_cfg, enc_cfg),
-                      baseline_point_fn(df, mlp_cfg, enc_cfg), rays, rcfg,
-                      generator)
-    rgb_coarse = out.coarse.rgb
-    rgb_fine = out.fine.rgb if out.fine is not None else None
-    if flags.consistency_iter:
-        rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
-        if rgb_fine is not None:
-            rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
-    coarse_loss = img2mse(rgb_coarse, target[..., :3])
-    fine_loss = img2mse(rgb_fine, target[..., :3]) if rgb_fine is not None \
-        else torch.zeros((), device=target.device)
-    rendering_loss = coarse_loss + fine_loss
-    leaves = _leaves(diff)
-    gl = torch.autograd.grad(_loss_weight(flags) * rendering_loss, leaves,
-                             allow_unused=True)
-    grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
-                              for x, g in zip(leaves, gl)])
-    metrics = {"loss": rendering_loss, "coarse_loss": coarse_loss,
-               "fine_loss": fine_loss, "psnr": mse2psnr(rendering_loss),
-               "fine_psnr": mse2psnr(fine_loss)}
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    with span("forward"):
+        dc = _inputs(decoder_coarse, True)
+        diff = {"dc": dc}
+        df = dc
+        if not flags.share_coarse_fine:
+            df = diff["df"] = _inputs(decoder_fine, True)
+        out = render_rays(baseline_point_fn(dc, mlp_cfg, enc_cfg),
+                          baseline_point_fn(df, mlp_cfg, enc_cfg), rays,
+                          rcfg, generator)
+        rgb_coarse = out.coarse.rgb
+        rgb_fine = out.fine.rgb if out.fine is not None else None
+        if flags.consistency_iter:
+            rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
+            if rgb_fine is not None:
+                rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
+        coarse_loss = img2mse(rgb_coarse, target[..., :3])
+        fine_loss = img2mse(rgb_fine, target[..., :3]) \
+            if rgb_fine is not None \
+            else torch.zeros((), device=target.device)
+        rendering_loss = coarse_loss + fine_loss
+        metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
+    with span("backward"):
+        leaves = _leaves(diff)
+        gl = torch.autograd.grad(_loss_weight(flags) * rendering_loss,
+                                 leaves, allow_unused=True)
+        grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
+                                  for x, g in zip(leaves, gl)])
+    return metrics, grads
 
 
 # ---------------------------------------------------------------------------
