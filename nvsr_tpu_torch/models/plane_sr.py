@@ -6,8 +6,9 @@ tiles with `tile_size`).
 
 Parameters keep the JAX pytree layout with OIHW conv weights
 (`bridge.plane_sr_from_jax`, `init_plane_sr_params`). Convolutions are
-`F.conv2d` (cuDNN on the card): the JAX package runs them in XLA, not in
-a hand-written kernel.
+`F.conv2d` (cuDNN on the card) through `PlaneConv`, whose backward takes
+an f32 data gradient as a forward convolution (see its docstring): the
+JAX package runs them in XLA, not in a hand-written kernel.
 A bfloat16 compute_dtype casts operands to bf16; the conv accumulates in
 f32 and rounds its output to bf16 once per layer, and the trunk then
 stays bf16 (residual sums included) as in the JAX module. Whether f32
@@ -41,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from nvsr_tpu_torch.ops.resize import upsample_plane
@@ -250,6 +252,54 @@ def init_plane_sr_params(generator: torch.Generator, cfg: PlaneSRConfig,
     return params
 
 
+class PlaneConv(torch.autograd.Function):
+    """`F.conv2d(x, w, padding=padding)` (stride 1, dilation 1, one
+    group, a square odd kernel, 0 <= padding <= k - 1) whose backward,
+    for f32 (and f64) operands, takes the data gradient as a forward
+    convolution: the output gradient with the weights' in and out
+    channels swapped and flipped in space, at padding k - 1 - padding.
+    The same multiply-adds as the convolution's own data gradient, in
+    another order. At batch 1 cuDNN picks an FFT data gradient for f32,
+    whose per-frequency product is a complex GEMV; its forward engines
+    take the same work about 4x faster (H100, 256 -> 256 and 256 -> 1024
+    channels at 330^2 and 404^2). For bf16 cuDNN's own data gradient is a
+    tensor-core implicit GEMM, and the forward route made a bf16 EDSR's
+    backward 15% slower on the same card, so bf16 and f16 keep it.
+    The weight gradient is always the convolution's own.
+
+    `data_grads` counts the data gradients taken as forward convolutions
+    (like `kernels.launches`)."""
+
+    data_grads = 0
+    FORWARD_DGRAD_DTYPES = (torch.float32, torch.float64)
+
+    @staticmethod
+    def forward(ctx, x, w, padding: int):
+        k = w.shape[-1]
+        assert w.shape[-2] == k and k % 2 == 1 and 0 <= padding <= k - 1 \
+            and x.shape[1] == w.shape[1], (tuple(x.shape), tuple(w.shape),
+                                           padding)
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return F.conv2d(x, w, padding=padding)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        p = ctx.padding
+        need_dx, need_dw, _ = ctx.needs_input_grad
+        as_forward = need_dx and x.dtype in PlaneConv.FORWARD_DGRAD_DTYPES
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, x, w, None, (1, 1), (p, p), (1, 1), False, (0, 0), 1,
+            (need_dx and not as_forward, need_dw, False))
+        if as_forward:
+            dx = F.conv2d(dy, w.transpose(0, 1).flip(-2, -1),
+                          padding=w.shape[-1] - 1 - p)
+            PlaneConv.data_grads += 1
+        return dx, dw, None
+
+
 def _conv(p, x, compute_dtype=None, padding: int = 0):
     """Conv of NCHW x with OIHW p["w"] (+ p["b"]): VALID, or zero
     `padding` on each side (SAME for an odd kernel of 2 * padding + 1)."""
@@ -257,7 +307,7 @@ def _conv(p, x, compute_dtype=None, padding: int = 0):
     if compute_dtype is not None:
         cd = getattr(torch, compute_dtype)
         x, w = x.to(cd), w.to(cd)
-    y = F.conv2d(x, w, padding=padding)
+    y = PlaneConv.apply(x, w, padding)
     if "b" in p:
         y = y + p["b"].to(y.dtype)[None, :, None, None]
     return y

@@ -21,7 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nvsr_tpu_torch.models.plane_sr import PlaneSRConfig, apply_plane_sr
+from nvsr_tpu_torch.models.plane_sr import (PlaneConv, PlaneSRConfig,
+                                            apply_plane_sr)
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
 from nvsr_tpu_torch.ops import draws
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
@@ -141,11 +142,15 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     (loss, coarse_loss, fine_loss, psnr, fine_psnr, and overflow_frac on
     the trainable route); grads has the JAX layout {"planes", "dc",
     "df", "sr"} for the trained groups, each the structure of its input.
+    Under a profiler, the `plane_sr` span gets the arg `conv_data_grads`
+    after the backward: the SR convs' data gradients taken as forward
+    convolutions (models.plane_sr.PlaneConv).
     """
     with span("forward"):
-        metrics, diff, total = _forward(
+        metrics, diff, total, sr_span = _forward(
             decoder_coarse, decoder_fine, sr_params, plane_params, box, rays,
             target, generator, model_cfg, sr_cfg, rcfg, flags, mesh)
+    data_grads = PlaneConv.data_grads
     with span("backward"):
         leaves = _leaves(diff)
         grads = {}
@@ -156,13 +161,16 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
                 torch.autograd.grad(total, leaves, allow_unused=True)
             grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
                                       for x, g in zip(leaves, gl)])
+    if sr_span is not None:
+        sr_span.set(conv_data_grads=PlaneConv.data_grads - data_grads)
     return metrics, grads
 
 
 def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
              rays, target, generator, model_cfg, sr_cfg, rcfg, flags, mesh):
     """train_step's forward -> (detached metrics, the trained groups'
-    inputs {"planes", "dc", "df", "sr"}, the weighted loss)."""
+    inputs {"planes", "dc", "df", "sr"}, the weighted loss, the
+    `plane_sr` span or None)."""
     if flags.track_surface_aabb and not rcfg.keep_z:
         rcfg = dataclasses.replace(rcfg, keep_z=True)
     diff = {}
@@ -189,11 +197,12 @@ def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     noise_gen = generator if (model_cfg.point_coords_noise
                               and flags.plane_resolution) else None
     coarse_planes = fine_planes = planes_pos
+    sr_span = None
     if flags.sr_iter and sr is not None:
         sr_in = planes_pos.detach() if flags.detach_lr_planes \
             else planes_pos
         # the SR net's noise is of the planes, not of the batch's rows
-        with span("plane_sr"):
+        with span("plane_sr") as sr_span:
             fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
                                          generator=draws.base(generator),
                                          mesh=mesh)
@@ -233,7 +242,7 @@ def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
         metrics["overflow_frac"] = out.aux["overflow_frac"]
     if flags.track_surface_aabb:
         metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
-    return metrics, diff, total
+    return metrics, diff, total, sr_span
 
 
 def _step_metrics(rendering_loss, coarse_loss, fine_loss) -> dict:

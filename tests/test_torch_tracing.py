@@ -115,6 +115,12 @@ def test_an_iteration_records_one_root_and_its_phases(corpus, monkeypatch):
     forward = next(r["index"] for r in recs if r["name"] == "forward")
     assert _children(recs, forward) == ["plane_sr", "render.coarse",
                                         "render.fine"]
+    # every conv of the EDSR takes one data gradient per plane (the
+    # three LR planes are trained through it)
+    inner = exp.sr_params["inner"]
+    n_convs = 3 + 2 * len(inner["blocks"]) + len(inner["upscale"])
+    sr_rec = next(r for r in recs if r["name"] == "plane_sr")
+    assert sr_rec["args"] == {"conv_data_grads": 3 * n_convs}
     assert all(r["iteration"] == 2 for r in recs)
     for r in recs:
         assert r["start_ns"] <= r["end_ns"]
