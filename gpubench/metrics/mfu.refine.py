@@ -1,0 +1,6 @@
+"""mfu.refine: mfu.train (metrics/mfu.train.py) in the stage-3 refine cell, where it moves
+train_iter_ms (a consistency iteration counts as an HR one)."""
+
+from gpubench.harness import load_metric
+
+read = load_metric("mfu.train").read

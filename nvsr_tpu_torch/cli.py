@@ -12,16 +12,19 @@ and the eval-mode override from the trained experiment's dumped config
 (the eval config's dataset section is kept). The logdir it writes is the
 JAX package's layout, so either package resumes or evaluates what the
 other wrote. The device is the card unless `--device` names another.
-`--profile-dir` traces the run with torch.profiler into that directory
-(a Chrome trace), in place of the JAX package's jax.profiler trace. The
-trace carries the program's spans (`utils/tracing.py`) as `nvsr.*`
-annotations beside the operators and kernels: `nvsr.train_iteration`
+`--profile-dir` traces the set-up and the run with torch.profiler into
+that directory (a Chrome trace), in place of the JAX package's
+jax.profiler trace. The trace carries the program's spans
+(`utils/tracing.py`) as `nvsr.*` annotations beside the operators and
+kernels: `nvsr.load_pretrained` over the set-up's loads (the pretrained
+or resumed checkpoints, then the first planes draw), `nvsr.train_iteration`
 over each training iteration, with its phases `nvsr.input` (the draw,
 the rays and the target to the device, the planes lent and the rays
 tightened), `nvsr.occupancy` (the occupancy update), `nvsr.forward`
-(with `nvsr.plane_sr` and `nvsr.render.coarse` / `nvsr.render.fine`
-inside), `nvsr.backward` (the gradients), `nvsr.reduce` (the data
-group's all_reduce, under a mesh) and `nvsr.optimizer` (the planes' Adam,
+(with `nvsr.plane_sr`, `nvsr.render.coarse` / `nvsr.render.fine` and,
+on a consistency iteration, `nvsr.consistency_loss` inside),
+`nvsr.backward` (the gradients), `nvsr.reduce` (the data group's
+all_reduce, under a mesh) and `nvsr.optimizer` (the planes' Adam,
 the gated module steps); around them `nvsr.flush_metrics` (the queued
 metrics' one device-to-host copy), `nvsr.evaluate` and `nvsr.save` (the
 planes and the checkpoints written).
@@ -44,6 +47,7 @@ this happens.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
@@ -145,23 +149,25 @@ def run(args, device):
     print(f"Using configuration file {config_file}")
     print(("Evaluating" if eval_mode else "Running")
           + f" experiment {experiment_id} on {device}")
-    exp = Experiment(cfg, load_checkpoint=args.load_checkpoint,
-                     eval_mode=eval_mode, results_path=args.results_path,
-                     root_path=root_path, device=device)
+    profiler = contextlib.nullcontext()
     if args.profile_dir:
+        # the set-up's loads (`load_pretrained`) and the run
         from torch.profiler import (ProfilerActivity, profile,
                                     tensorboard_trace_handler)
         activities = [ProfilerActivity.CPU]
-        if exp.device.type == "cuda":
+        if torch.device(device).type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities,
-                     on_trace_ready=tensorboard_trace_handler(
-                         args.profile_dir)):
-            exp.run(max_iters=args.max_iters)
-            if exp.device.type == "cuda":
-                torch.cuda.synchronize(exp.device)
-    else:
+        profiler = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(
+                               args.profile_dir))
+    with profiler:
+        exp = Experiment(cfg, load_checkpoint=args.load_checkpoint,
+                         eval_mode=eval_mode,
+                         results_path=args.results_path,
+                         root_path=root_path, device=device)
         exp.run(max_iters=args.max_iters)
+        if args.profile_dir and exp.device.type == "cuda":
+            torch.cuda.synchronize(exp.device)
 
 
 if __name__ == "__main__":

@@ -108,7 +108,8 @@ from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
 from nvsr_tpu_torch.ops.rendering import img2mse, mse2psnr, ssim
 from nvsr_tpu_torch.ops.resize import image_inconsistency_loss
 from nvsr_tpu_torch.parallel.host_pool import HostPartition, pool_homes
-from nvsr_tpu_torch.parallel.sharding import (agree, broadcast_object,
+from nvsr_tpu_torch.parallel.sharding import (COLLECTIVES, agree,
+                                              broadcast_object,
                                               data_sharding,
                                               decoder_tp_shardings,
                                               gather_tree, make_mesh,
@@ -148,6 +149,13 @@ RUNNING_MEAN_LOGS = ["psnr", "SR_psnr_gain", "planes_SR", "fine_loss",
 def downsampling_offset(ds_factor) -> float:
     """Sub-pixel ray offset matching image downsampling."""
     return (ds_factor - 1) / (2 * ds_factor)
+
+
+def _files_read(paths) -> dict:
+    """A load_pretrained span's args: how many files were read and their
+    bytes."""
+    return {"files": len(paths),
+            "bytes": sum(os.path.getsize(p) for p in paths)}
 
 
 def find_latest_checkpoint(ckpt_path: str, sr: bool,
@@ -440,7 +448,8 @@ class Experiment:
         self._build_sr()
         self._build_optimizers()
         if load_saved_models:
-            self._load_checkpoints()
+            with span("load_pretrained") as sp:
+                sp.set(**_files_read(self._load_checkpoints()))
         self._build_planes()
 
         # SR input normalization from the corpus planes' statistics,
@@ -762,8 +771,11 @@ class Experiment:
         return state
 
     def _load_checkpoints(self):
+        """Load the SR net and the decoders (with their optimizers' state)
+        from the pretrained or resumed logdir -> the files read."""
         load_best = self.eval_mode or not self.resume_experiment
         cfg = self.cfg
+        read = []
         if self.sr_experiment and self.sr_params is not None:
             if ("SR" not in self.what2train or self.resume_experiment
                     or cfg.get_path("super_resolution.model.path")):
@@ -788,6 +800,7 @@ class Experiment:
                     if "SR_optimizer" in ckpt:
                         self.sr_opt.state = ckpt["SR_optimizer"]
                 self.sr_checkpoint_source = path
+                read.append(path)
 
         frozen_decoder = (self.planes_model
                           and "decoder" not in self.what2train)
@@ -799,9 +812,10 @@ class Experiment:
             find_best = load_best or frozen_decoder
         path = find_latest_checkpoint(src, sr=False, find_best=find_best)
         if path is None:
-            return
+            return read
         ckpt = load_pickle(path, suffix="ckpt_best"
                            if path.endswith("_best") else "ckpt")
+        read.append(path)
         if self.planes_model and "models_config" in ckpt:
             assert_compatible_model_config(
                 ckpt["models_config"], self.cfg.get("models",
@@ -831,6 +845,7 @@ class Experiment:
                     self.decoder_opt.state = ckpt["optimizer"]
                 except (KeyError, IndexError, ValueError):
                     pass
+        return read
 
     def save_checkpoints(self, iteration: int, as_best: bool = False):
         """Rolling checkpoints (the last one of each model kept), the best
@@ -1348,7 +1363,8 @@ class Experiment:
         target to the device; for a planes model a second one after
         `occupancy`: the planes lent, the rays tightened to the occupied
         box), `occupancy`, train_step's `forward` and `backward`,
-        `reduce` (under a mesh) and `optimizer`."""
+        `reduce` (under a mesh; arg `bytes`, what its all_reduce moved)
+        and `optimizer`."""
         with span("train_iteration", iteration=iteration) as root:
             return self._train_iteration(iteration, root)
 
@@ -1475,8 +1491,10 @@ class Experiment:
                 generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
                 flags=flags, enc_cfg=self._enc_for(scene_id))
         if self.mesh is not None:
-            with span("reduce"):
+            with span("reduce") as sp:
+                before = COLLECTIVES["data:all_reduce_bytes"]
                 metrics, grads = reduce_step(self.mesh, metrics, grads)
+                sp.set(bytes=COLLECTIVES["data:all_reduce_bytes"] - before)
         if self.planes_model and flags.track_surface_aabb:
             # device tensors, fetched in one copy at the commit
             self._occ_window.setdefault(scene_id, []).append(
@@ -1756,7 +1774,13 @@ class Experiment:
         a collective that another waits in."""
         cfg = self.cfg
         if self.planes_model:
-            self.planes_buffer.draw_scenes()
+            # set-up's planes load (a pretrained run's from planes_path)
+            with span("load_pretrained") as sp:
+                store = self.store
+                files, nbytes = store.files_read, store.bytes_read
+                self.planes_buffer.draw_scenes()
+                sp.set(files=store.files_read - files,
+                       bytes=store.bytes_read - nbytes)
         if self.eval_mode:
             with span("evaluate"):
                 self.evaluate()

@@ -176,6 +176,8 @@ class PlaneStore:
             save_locations = [save_locations]
         self.save_locations = list(save_locations)
         self.run_time_signature = run_time_signature
+        # the plane files this store has read, and their bytes
+        self.files_read = self.bytes_read = 0
         if backend == "auto":
             backend = "native" if native_store.available() else "npz"
         assert backend in ("native", "npz")
@@ -228,6 +230,12 @@ class PlaneStore:
                         run_time_signature=self.run_time_signature,
                         run_folder=run_folder)
 
+    def _read(self, path: str) -> dict:
+        arrays = _read_any(path)
+        self.files_read += 1
+        self.bytes_read += os.path.getsize(path)
+        return arrays
+
     def load(self, scene: str, prefer_best: bool = False,
              model_name: str = "coarse", with_opt_state: bool = False,
              locations=None):
@@ -238,7 +246,7 @@ class PlaneStore:
         assert path, (
             f"Could not find the required feature planes file for scene "
             f"{scene} in {locations or self.save_locations}")
-        arrays = safe_load(path, _read_any, SUFFIX, best=prefer_best)
+        arrays = safe_load(path, self._read, SUFFIX, best=prefer_best)
         planes = ScenePlanes(
             torch.from_numpy(arrays["planes_pos"]),
             torch.from_numpy(arrays["plane_view"])

@@ -34,7 +34,7 @@ from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
                                    make_baseline_point_fn,
                                    make_triplane_point_fn, render_rays)
 from nvsr_tpu_torch.utils.io import EmptyState, ScaleByAdamState
-from nvsr_tpu_torch.utils.tracing import span
+from nvsr_tpu_torch.utils.tracing import NO_SPAN, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +144,9 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     "df", "sr"} for the trained groups, each the structure of its input.
     Under a profiler, the `plane_sr` span gets the arg `conv_data_grads`
     after the backward: the SR convs' data gradients taken as forward
-    convolutions (models.plane_sr.PlaneConv).
+    convolutions (models.plane_sr.PlaneConv); on a consistency iteration
+    the patch means and the loss are a `consistency_loss` span (args
+    `patches`, the LR pixels of this batch, and `ds`).
     """
     with span("forward"):
         metrics, diff, total, sr_span = _forward(
@@ -225,17 +227,21 @@ def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
 
     rgb_coarse = out.coarse.rgb
     rgb_fine = out.fine.rgb if out.fine is not None else None
-    if flags.consistency_iter:
-        rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
-        if rgb_fine is not None:
-            rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
-    zero = torch.zeros((), device=target.device)
-    coarse_loss = fine_loss = zero
-    if flags.compute_coarse_loss:
-        coarse_loss = img2mse(rgb_coarse, target[..., :3])
-    if flags.compute_fine_loss and rgb_fine is not None:
-        fine_loss = img2mse(rgb_fine, target[..., :3])
-    rendering_loss = coarse_loss + fine_loss
+    # a consistency iteration's loss: each ds x ds patch's mean colour
+    # against its LR pixel (target's rows)
+    with span("consistency_loss", patches=target.shape[0],
+              ds=flags.ds_factor) if flags.consistency_iter else NO_SPAN:
+        if flags.consistency_iter:
+            rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
+            if rgb_fine is not None:
+                rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
+        zero = torch.zeros((), device=target.device)
+        coarse_loss = fine_loss = zero
+        if flags.compute_coarse_loss:
+            coarse_loss = img2mse(rgb_coarse, target[..., :3])
+        if flags.compute_fine_loss and rgb_fine is not None:
+            fine_loss = img2mse(rgb_fine, target[..., :3])
+        rendering_loss = coarse_loss + fine_loss
     total = _loss_weight(flags) * rendering_loss
     metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
     if out.aux and "overflow_frac" in out.aux:

@@ -57,7 +57,8 @@ class _Noop:
         pass
 
 
-_NOOP = _Noop()
+# the shared no-op span (also for a `with` whose span is conditional)
+NO_SPAN = _Noop()
 
 
 class _Span:
@@ -114,7 +115,7 @@ def span(name: str, **args):
     """A context that records `name` while a profiler records, else the
     shared no-op. Both have `set(**args)`."""
     if not torch._C._autograd._profiler_enabled():
-        return _NOOP
+        return NO_SPAN
     return _Span(name, args)
 
 

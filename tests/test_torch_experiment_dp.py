@@ -13,6 +13,10 @@ the CPU, as tests/test_experiment_mesh.py holds JAX's on its mesh:
   1e-2 with the SR net's convolutions in bf16, whose rounding steps
   grow the averaged gradients' rounding (the losses, PSNRs and image
   within JAX's bounds there too);
+* a world of 4 (32 of the 128 rays a rank; two ranks own no plane file)
+  against the world of 1 alike, in f32; with the last rank's gradients
+  left out of the average (gpubench/cell_faults.py's dp_rank_left_out)
+  it lands outside those bounds;
 * a world of 1 against no process group: bit for bit;
 * ownership: each rank wrote only the plane files it owns, rank 0 alone
   the checkpoints and exp_info, and both ranks hold the same planes;
@@ -100,12 +104,16 @@ def worlds(corpus, jax_stage, cpu_devices, tmp_path_factory):
     for name in ("w2_bf16", "w1_bf16"):
         cfgs[name] = _cfg(corpus, f"logs/{name}")
         cfgs[name].super_resolution.model["compute_dtype"] = "bfloat16"
+    for name in ("w4", "w4_left_out"):
+        cfgs[name] = _cfg(corpus, f"logs/{name}")
+    faults = {"w4_left_out": "dp_rank_left_out"}
     runs = {name: dist_helpers.start(
-        STEPS, world, dict(cfg=cfgs[name].to_dict(), root=str(corpus)), tmp,
-        group=group)
+        STEPS, world, dict(cfg=cfgs[name].to_dict(), root=str(corpus),
+                           fault=faults.get(name)), tmp, group=group)
         for name, world, group in (("w2", 2, True), ("w1", 1, True),
                                    ("alone", 1, False), ("refine", 2, True),
-                                   ("w2_bf16", 2, True), ("w1_bf16", 1, True))}
+                                   ("w2_bf16", 2, True), ("w1_bf16", 1, True),
+                                   ("w4", 4, True), ("w4_left_out", 4, True))}
     je = JExperiment(_cfg(corpus, "logs/jax_dp2", data_parallel=2,
                           **jax_stage), root_path=str(corpus))
     assert je.mesh is not None and je.mesh.shape["data"] == 2
@@ -166,6 +174,89 @@ def test_world2_parameters_against_world1(worlds, sr_dtype, bound):
         print(f"world 2 vs world 1, SR net {sr_dtype[1:] or 'f32'}: planes "
               f"{planes:.3e}, decoders {decoders:.3e} of the leaf max")
         assert planes <= bound and decoders <= bound
+
+
+def _world4_gaps(worlds, name):
+    """The losses' and PSNRs' largest relative gaps and the planes' and
+    decoders' (_rel) of each rank of world `name` against the world of
+    1, after the 4 steps."""
+    ref, = worlds["w1"]
+    scenes = sorted(ref["planes"])
+    out = []
+    for rank in worlds[name]:
+        assert sorted(rank["planes"]) == scenes
+        loss = float(np.max(np.abs(np.subtract(rank["losses"], ref["losses"]))
+                            / np.abs(ref["losses"])))
+        out.append((loss, _rel([rank["planes"][s] for s in scenes],
+                               [ref["planes"][s] for s in scenes]),
+                    _rel(rank["decoders"], ref["decoders"])))
+    return out
+
+
+def test_world4_parameters_against_world1(worlds):
+    """A world of 4 holds the world of 1's losses, PSNRs and eval image
+    within JAX's bounds, and its planes and decoders after the 4 steps
+    within 1e-5 of each leaf's largest, as the world of 2 does in f32:
+    four shards' averaged gradients round in another order, and stay
+    rounding."""
+    ref, = worlds["w1"]
+    assert len(worlds["w4"]) == 4
+    for rank in worlds["w4"]:
+        np.testing.assert_allclose(rank["losses"], ref["losses"], rtol=2e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(rank["psnrs"], ref["psnrs"], rtol=2e-4)
+        np.testing.assert_allclose(rank["rgb"], ref["rgb"], rtol=1e-4,
+                                   atol=2e-5)
+    for loss, planes, decoders in _world4_gaps(worlds, "w4"):
+        print(f"world 4 vs world 1: loss {loss:.3e}, planes {planes:.3e}, "
+              f"decoders {decoders:.3e} of the leaf max")
+        assert planes <= 1e-5 and decoders <= 1e-5
+
+
+def test_world4_with_a_rank_left_out_of_the_average_fails(worlds):
+    """The planted fault: the last rank's gradients left out of the sum,
+    which is still divided by 4. The losses, which the all_reduce
+    still averages whole, move only through the steps (1e-5); the planes
+    and decoders land far outside the bound (0.46 and 7.4e-3 of the leaf
+    max)."""
+    for loss, planes, decoders in _world4_gaps(worlds, "w4_left_out"):
+        print(f"world 4, a rank left out: loss {loss:.3e}, planes "
+              f"{planes:.3e}, decoders {decoders:.3e}")
+        assert planes > 1e-5 and decoders > 1e-5
+
+
+def test_reduce_span_carries_the_all_reduce_bytes(corpus, tmp_path):
+    """Under a profiler, an iteration's `reduce` span has the arg `bytes`:
+    what its all_reduce moved (parallel.sharding.COLLECTIVES), the f32
+    gradients of the decoders, the SR net and the scene's planes and the
+    three loss terms. A world of 1 in this process: data_parallel over
+    a gloo group of one rank has a mesh and reduces."""
+    import torch
+    import torch.distributed as dist
+    from nvsr_tpu_torch.utils import tracing
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        exp = TExperiment(TCfgNode(_cfg(corpus, "logs/reduce").to_dict()),
+                          root_path=str(corpus), device="cpu")
+        assert exp.mesh is not None
+        exp.planes_buffer.draw_scenes()
+        exp._update_active_scenes()
+        tracing.clear()
+        with torch.profiler.profile():
+            for i in range(2):
+                exp.train_iteration(i)
+        spans = [r for r in tracing.records() if r["name"] == "reduce"]
+        tracing.clear()
+    finally:
+        dist.destroy_process_group()
+    modules = sum(t.numel() * t.element_size()
+                  for opt in (exp.decoder_opt, exp.sr_opt)
+                  for t in opt._leaves)
+    planes = sum(t.numel() * t.element_size() for t in next(iter(
+        exp.planes_buffer.resident.values())).params().values())
+    assert [r["args"]["bytes"] for r in spans] == [modules + planes + 12] * 2
 
 
 def test_world1_is_bit_equal_to_no_process_group(worlds):

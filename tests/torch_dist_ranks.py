@@ -8,13 +8,18 @@ import numpy as np
 import torch
 
 
-def experiment_steps(rank, world, cfg, root, n_iters=4):
+def experiment_steps(rank, world, cfg, root, n_iters=4, fault=None):
     """The mini TrainModels of tests/test_experiment_mesh.py's _run_steps
     through the port's Experiment on the CPU: n_iters train_iterations,
     the flushed losses and PSNRs, one eval view's rgb on the reference
     path and on the eval kernels' route; also which plane
     files and pickles this rank wrote (after a planes save and a
-    checkpoint save), and the scenes' resident planes."""
+    checkpoint save), and the scenes' resident planes. `fault`: a fault
+    of gpubench/cell_faults.py planted in the rank for the whole run."""
+    if fault is not None:
+        from gpubench import cell_faults
+        with cell_faults.planted(fault):
+            return experiment_steps(rank, world, cfg, root, n_iters)
     from nvsr_tpu_torch import experiment as experiment_mod
     from nvsr_tpu_torch.utils.config import CfgNode
 
