@@ -21,6 +21,21 @@ to get around its batch-1 conv lowering; it does not change the
 function. On the card cuDNN picks the algorithm, so the port has no
 such field.
 
+`remat` likewise picks a schedule, not a function. JAX reads an unstated
+`super_resolution.model.remat` as True, to save TPU HBM; the port reads
+it as None and decides once per `apply_plane_sr` call in training, for
+every plane and tile of the call (`edsr_remat`): keep the residual
+blocks' activations for the backward when the ReLU maps the trunk would
+keep (`edsr_kept_bytes`; the block inputs are kept either way) fit in
+half of what the caching allocator can still hand out on the card
+(`cuda_room`; the other half is left to the backward's own gradients and
+cuDNN workspaces), else recompute each block in the backward as JAX
+does. On the CPU, and under a tensor-parallel mesh, None recomputes: on
+the CPU there is no allocator to ask, and under a mesh ranks that chose
+differently would issue different numbers of collectives in the
+backward. A stated True or False is honoured as it stands. Kept or
+recomputed, the backward does the same multiply-adds on the same values.
+
 Under a tensor-parallel mesh (`mesh=`, model_parallel > 1, the
 parameters in parallel.sharding.plane_sr_tp_shardings' slices: every
 conv's output channels split over the model group) each conv computes
@@ -83,8 +98,8 @@ def edsr_layer_plan(n_blocks: int, scale_factor: int,
 
 @dataclasses.dataclass(frozen=True)
 class PlaneSRConfig:
-    """The fields of the JAX PlaneSRConfig but conv_impl (see the module
-    docstring)."""
+    """The fields of the JAX PlaneSRConfig but conv_impl; remat's
+    default differs (see the module docstring)."""
     arch: str = "EDSR"                   # EDSR | SRResNet
     in_channels: int = 48
     out_channels: int = 48
@@ -107,8 +122,10 @@ class PlaneSRConfig:
     tile_size: Optional[int] = None
     # recompute each residual block (remat_every > 1: each segment of
     # that many blocks) in the backward instead of storing its
-    # activations; takes effect only where gradients are recorded
-    remat: bool = True
+    # activations; takes effect only where gradients are recorded. None
+    # (unstated): apply_plane_sr decides in training, keeping them when
+    # they fit in half the card's room (see the module docstring)
+    remat: Optional[bool] = None
     remat_every: int = 1
     # training: all planes through the trunk as one batch, instead of
     # one plane at a time
@@ -118,8 +135,9 @@ class PlaneSRConfig:
     def from_cfg(cls, sr_cfg, scale_factor: int, plane_channels: int,
                  plane_interp: str, align_corners: bool) -> "PlaneSRConfig":
         """Build from a reference-style `super_resolution` YAML section,
-        as the JAX from_cfg (but conv_impl): the residual mode is
-        `plane_resize_mode`, else the triplane's plane_interp."""
+        as the JAX from_cfg (but conv_impl, and an unstated remat reads
+        None): the residual mode is `plane_resize_mode`, else the
+        triplane's plane_interp."""
         model = sr_cfg.get("model", {})
         return cls(
             arch=model.get("type", "EDSR"),
@@ -138,7 +156,7 @@ class PlaneSRConfig:
             no_batch_norm=model.get("no_batch_norm", False),
             compute_dtype=model.get("compute_dtype", None),
             tile_size=model.get("tile_size", None),
-            remat=model.get("remat", True),
+            remat=model.get("remat"),
             remat_every=model.get("remat_every", 1),
             train_batch=model.get("train_batch", False))
 
@@ -355,21 +373,93 @@ def _edsr_blocks(blocks, h, cd, mesh=None):
     return h
 
 
+class BlockRecompute:
+    """A segment of residual blocks under torch.utils.checkpoint: only
+    its input is kept, and the backward runs the segment again for the
+    activations it needs. `blocks` counts the blocks so recomputed (like
+    PlaneConv.data_grads)."""
+
+    blocks = 0
+
+    @staticmethod
+    def apply(blocks, h, cd, mesh=None):
+        runs = []
+
+        def run(h):
+            if runs:
+                BlockRecompute.blocks += len(blocks)
+            runs.append(None)
+            return _edsr_blocks(blocks, h, cd, mesh)
+
+        return checkpoint(run, h, use_reentrant=False)
+
+
+def edsr_kept_bytes(cfg: PlaneSRConfig, lr_shape, dtype=torch.float32) -> int:
+    """The bytes of the ReLU maps that an EDSR trunk keeps for the
+    backward when it does not recompute its blocks, for LR planes of
+    `lr_shape` [P, C, H, W] in `dtype` (cfg.compute_dtype where set):
+    per plane (and, with cfg.tile_size, per tile, all of which stay
+    alive until the backward), each block's map of hidden_size channels
+    at its first conv's output size. The block inputs are not counted:
+    the recompute keeps them as well."""
+    n, _, h, w = lr_shape
+    pad = cfg.required_padding
+    sizes = [(h + 2 * pad, w + 2 * pad)]
+    if cfg.tile_size is not None:
+        t = int(cfg.tile_size)
+        sizes = [(t + 2 * pad, t + 2 * pad)] * (-(-h // t) * -(-w // t))
+    if cfg.compute_dtype is not None:
+        dtype = getattr(torch, cfg.compute_dtype)
+    plan = edsr_layer_plan(cfg.n_blocks, cfg.scale_factor,
+                           cfg.receptive_field_bound)
+    area = 0
+    for sh, sw in sizes:
+        sh, sw = sh - plan["conv_input"] + 1, sw - plan["conv_input"] + 1
+        for k in plan["blocks"]:
+            area += (sh - k + 1) * (sw - k + 1)
+            sh, sw = sh - 2 * (k - 1), sw - 2 * (k - 1)
+    return n * cfg.hidden_size * area * dtype.itemsize
+
+
+def cuda_room(device) -> int:
+    """What the caching allocator can still hand out on a CUDA `device`:
+    the driver's free memory and what the allocator holds reserved but
+    unallocated."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def edsr_remat(cfg: PlaneSRConfig, kept_bytes: int, room: int, device,
+               mesh=None) -> bool:
+    """Whether the EDSR trunk recomputes its blocks in the backward: a
+    stated cfg.remat as it stands; else (None) recompute on a device that
+    is not CUDA and under a tensor-parallel mesh, and keep the
+    activations when `kept_bytes` (edsr_kept_bytes) is at most half the
+    `room` (cuda_room) of `device`."""
+    if cfg.remat is not None:
+        return cfg.remat
+    if torch.device(device).type != "cuda" or tensor_parallel(mesh):
+        return True
+    return kept_bytes > room / 2
+
+
 def apply_edsr(params, cfg: PlaneSRConfig, x, mesh=None):
     """[N, C, H, W] (pre-padded) -> [N, C, H', W'] VALID-conv EDSR:
     residual blocks crop their identity path by the VALID margin and
     scale the residual by 0.1; PixelShuffle upscaling ends the trunk.
-    With cfg.remat and gradients recorded, each segment of
-    cfg.remat_every blocks is recomputed in the backward. mesh: see the
-    module docstring."""
+    With gradients recorded and cfg.remat True, or None (apply_plane_sr
+    decides None before it calls; a direct call recomputes), each
+    segment of cfg.remat_every blocks is recomputed in the backward
+    (BlockRecompute); with remat False the blocks keep their activations.
+    mesh: see the module docstring."""
     cd = cfg.compute_dtype
     h = _split_conv(params["conv_input"], x, mesh, cd)
     blocks = params["blocks"]
-    if cfg.remat and torch.is_grad_enabled():
+    if cfg.remat is not False and torch.is_grad_enabled():
         seg = max(1, cfg.remat_every)
         for i in range(0, len(blocks), seg):
-            h = checkpoint(_edsr_blocks, blocks[i:i + seg], h, cd, mesh,
-                           use_reentrant=False)
+            h = BlockRecompute.apply(blocks[i:i + seg], h, cd, mesh)
     else:
         h = _edsr_blocks(blocks, h, cd, mesh)
     h = _split_conv(params["conv_mid"], h, mesh, cd)
@@ -470,8 +560,18 @@ def apply_plane_sr(params, cfg: PlaneSRConfig, lr_planes, *,
     BatchNorm takes their statistics in training). With train and a
     generator, sr_input_noise (std relative to the planes' std) and
     sr_output_noise (relative to the detached net output's) are added.
-    mesh: a tensor-parallel mesh whose slices `params` holds (see the
-    module docstring)."""
+    An EDSR's unstated cfg.remat is decided here, once for all planes and
+    tiles of the call (edsr_remat), in training with gradients recorded;
+    otherwise it recomputes. mesh: a tensor-parallel mesh whose slices
+    `params` holds (see the module docstring)."""
+    if cfg.arch == "EDSR" and cfg.remat is None:
+        remat = True
+        if train and torch.is_grad_enabled():
+            dev = lr_planes.device
+            remat = edsr_remat(
+                cfg, edsr_kept_bytes(cfg, lr_planes.shape, lr_planes.dtype),
+                cuda_room(dev) if dev.type == "cuda" else 0, dev, mesh)
+        cfg = dataclasses.replace(cfg, remat=remat)
     x = lr_planes
     noisy = train and generator is not None
     if noisy and cfg.sr_input_noise > 0:

@@ -21,8 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nvsr_tpu_torch.models.plane_sr import (PlaneConv, PlaneSRConfig,
-                                            apply_plane_sr)
+from nvsr_tpu_torch.models.plane_sr import (BlockRecompute, PlaneConv,
+                                            PlaneSRConfig, apply_plane_sr)
 from nvsr_tpu_torch.models.triplane import TriplaneConfig
 from nvsr_tpu_torch.ops import draws
 from nvsr_tpu_torch.ops.plane_sample import TileSamplerConfig
@@ -142,9 +142,11 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     (loss, coarse_loss, fine_loss, psnr, fine_psnr, and overflow_frac on
     the trainable route); grads has the JAX layout {"planes", "dc",
     "df", "sr"} for the trained groups, each the structure of its input.
-    Under a profiler, the `plane_sr` span gets the arg `conv_data_grads`
-    after the backward: the SR convs' data gradients taken as forward
-    convolutions (models.plane_sr.PlaneConv); on a consistency iteration
+    Under a profiler, the `plane_sr` span gets the args `conv_data_grads`
+    and `recomputed_blocks` after the backward: the SR convs' data
+    gradients taken as forward convolutions (models.plane_sr.PlaneConv)
+    and the EDSR's residual blocks recomputed in the backward
+    (models.plane_sr.BlockRecompute); on a consistency iteration
     the patch means and the loss are a `consistency_loss` span (args
     `patches`, the LR pixels of this batch, and `ds`).
     """
@@ -152,7 +154,7 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
         metrics, diff, total, sr_span = _forward(
             decoder_coarse, decoder_fine, sr_params, plane_params, box, rays,
             target, generator, model_cfg, sr_cfg, rcfg, flags, mesh)
-    data_grads = PlaneConv.data_grads
+    data_grads, recomputed = PlaneConv.data_grads, BlockRecompute.blocks
     with span("backward"):
         leaves = _leaves(diff)
         grads = {}
@@ -164,7 +166,8 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
             grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
                                       for x, g in zip(leaves, gl)])
     if sr_span is not None:
-        sr_span.set(conv_data_grads=PlaneConv.data_grads - data_grads)
+        sr_span.set(conv_data_grads=PlaneConv.data_grads - data_grads,
+                    recomputed_blocks=BlockRecompute.blocks - recomputed)
     return metrics, grads
 
 

@@ -103,10 +103,15 @@ def _np_sr_params(rng, jcfg):
         tree)
 
 
-def _port_sr_cfg(jcfg):
+def _port_sr_cfg(jcfg, sr_cfg=None):
+    """The port's PlaneSRConfig with jcfg's fields. Given the YAML section
+    jcfg was read from, `remat` is the value it states, or None: JAX reads
+    an unstated remat as True, the port leaves it to apply_plane_sr."""
     keep = {f.name for f in dataclasses.fields(tp.PlaneSRConfig)}
-    return tp.PlaneSRConfig(**{k: v for k, v in
-                               dataclasses.asdict(jcfg).items() if k in keep})
+    fields = {k: v for k, v in dataclasses.asdict(jcfg).items() if k in keep}
+    if sr_cfg is not None:
+        fields["remat"] = sr_cfg.get("model", {}).get("remat")
+    return tp.PlaneSRConfig(**fields)
 
 
 @pytest.mark.parametrize("compute", [None, "bfloat16"])
@@ -139,11 +144,15 @@ def test_apply_plane_sr_bicubic_residual(rng, compute):
     ({"plane_resize_mode": "bicubic", "input_normalization": True,
       "sr_input_noise": 0.1, "model": {"compute_dtype": "bfloat16",
                                        "remat_every": 2}}, "bilinear"),
-    ({"plane_resize_mode": "bilinear"}, "bicubic")])
+    ({"plane_resize_mode": "bilinear"}, "bicubic"),
+    ({"model": {"remat": True}}, "bilinear"),
+    ({"model": {"remat": False, "remat_every": 3}}, "bilinear")])
 def test_plane_sr_config_from_cfg(sr_cfg, interp):
     ref = jp.PlaneSRConfig.from_cfg(sr_cfg, 4, 48, interp, False)
     out = tp.PlaneSRConfig.from_cfg(sr_cfg, 4, 48, interp, False)
-    assert out == _port_sr_cfg(ref)
+    assert out == _port_sr_cfg(ref, sr_cfg)
+    if "remat" in sr_cfg.get("model", {}):
+        assert out.remat == ref.remat == sr_cfg["model"]["remat"]
 
 
 @pytest.mark.parametrize("dense", [False, True])

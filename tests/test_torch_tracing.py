@@ -116,11 +116,13 @@ def test_an_iteration_records_one_root_and_its_phases(corpus, monkeypatch):
     assert _children(recs, forward) == ["plane_sr", "render.coarse",
                                         "render.fine"]
     # every conv of the EDSR takes one data gradient per plane (the
-    # three LR planes are trained through it)
+    # three LR planes are trained through it), and on the CPU every
+    # residual block of every plane is recomputed in the backward
     inner = exp.sr_params["inner"]
     n_convs = 3 + 2 * len(inner["blocks"]) + len(inner["upscale"])
     sr_rec = next(r for r in recs if r["name"] == "plane_sr")
-    assert sr_rec["args"] == {"conv_data_grads": 3 * n_convs}
+    assert sr_rec["args"] == {"conv_data_grads": 3 * n_convs,
+                              "recomputed_blocks": 3 * len(inner["blocks"])}
     assert all(r["iteration"] == 2 for r in recs)
     for r in recs:
         assert r["start_ns"] <= r["end_ns"]
