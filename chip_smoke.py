@@ -867,8 +867,7 @@ def train_phase(dev, c2w, w=TRAIN_FULL, on_card=True, profile=False,
         if on_card:
             peak[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[train] step {i} ({kind}): loss {loss:.6f}, psnr "
-              f"{float(m['psnr']):.3f} dB, overflow_frac "
-              f"{m.get('overflow_frac')}, {times[kind][-1]:.2f} ms")
+              f"{float(m['psnr']):.3f} dB, {times[kind][-1]:.2f} ms")
         if not np.isfinite(loss):
             fail(f"step {i}: non-finite loss")
     launches = {k.symbol: k.launches for k in mine}
@@ -1445,7 +1444,7 @@ def edge_checks(dev, counts=EDGE_COUNTS):
                         + ("sigma_only" if so else "full"))
                 kw = dict(align_corners=True, avg=True, sigma_only=so,
                           cubic=cubic)
-                out, _ = fused_render.fused_render_rays(
+                out = fused_render.fused_render_rays(
                     table, packed, o, d, zz, None if so else v, geom, **kw)
                 held(name, out, fused_render.fused_render_reference(
                     table, packed, o, d, zz, None if so else v, geom, **kw),
@@ -1458,8 +1457,8 @@ def edge_checks(dev, counts=EDGE_COUNTS):
                 ("triplane_render_grids_v1", False, "v1")):
             kw = dict(align_corners=True, avg=True, sigma_only=so, form=form)
             vv = None if so else v
-            out, _ = fused_render.tiled_render_chunked(table, packed, grids,
-                                                       vv, **kw)
+            out = fused_render.tiled_render_chunked(table, packed, grids,
+                                                    vv, **kw)
             held(name, out, fused_render.tiled_render_chunked_reference(
                 table, packed, grids, vv, **kw), n)
         rows, ty, view32, pk = decoder_inputs((table, packed, grids, v))
@@ -1622,7 +1621,7 @@ def grids_block(cfg, dec_c, dec_f, planes_lr, planes_sr, plane_view, box,
     tab_f = fused_render.build_plane_table(planes_sr)
     pk_c = fused_render.pack_decoder(dec_c, cfg)
     pk_f = fused_render.pack_decoder(dec_f, cfg)
-    rf_c, _ = fused_render.fused_render_rays(
+    rf_c = fused_render.fused_render_rays(
         tab_c, pk_c, blk.origins, blk.directions, z_c, None, geom,
         align_corners=True, avg=True, sigma_only=True)
     z_f = hierarchical_z_vals(
@@ -1695,7 +1694,7 @@ def grids_checks(blk):
             ("triplane_render_grids_full", blk["fine"], False, "v2"),
             ("triplane_render_grids_v1", blk["fine"], False, "v1")):
         kw = dict(align_corners=True, avg=True, sigma_only=so, form=form)
-        out, _ = fused_render.tiled_render_chunked(tab, pk, grids, view, **kw)
+        out = fused_render.tiled_render_chunked(tab, pk, grids, view, **kw)
         ref = fused_render.tiled_render_chunked_reference(tab, pk, grids,
                                                           view, **kw)
         torch.cuda.synchronize()
@@ -4487,7 +4486,7 @@ def main(profile=False):
         launches = {k.symbol: k.launches for k in frame_kernels}
         rgb = res.fine.rgb
         print(f"[main] SR + 800x800 frame in {main_s:.3f} s (first run); "
-              f"launches {launches}; aux {res.aux}")
+              f"launches {launches}")
         if tuple(rgb.shape) != (H, W, 3) or not torch.isfinite(rgb).all():
             fail(f"flagship frame: shape {tuple(rgb.shape)} or non-finite")
         if min(launches.values()) == 0:

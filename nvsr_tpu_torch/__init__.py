@@ -19,7 +19,8 @@ host modules in `utils/`, `data/` and `scenes.py`), which loads a logdir
 that the JAX package wrote and evaluates it through those kernels; its
 training half; and the rest of what the JAX package does on one device:
 the Mip-NeRF / PE-NeRF baseline (`ops/encoding.py`,
-`models/nerf_mlp.py`, the mip render, `train.train_step_baseline`),
+`models/nerf_mlp.py`, the mip render, and `train.train_step_baseline`,
+whose MLPs train through the planes model's step body),
 reference-checkpoint conversion (`convert.py`), SRResNet and tiled EDSR;
 and data- and tensor-parallel training and eval across ranks on
 torch.distributed (`parallel/`: the ('data', 'model') mesh, the row

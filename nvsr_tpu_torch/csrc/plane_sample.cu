@@ -55,7 +55,7 @@
 // clamping chunks whose footprint overflows the region; its backward is
 // the transposed matmul scattered region by region. On Hopper a tap is a
 // plain load, so the forwards need no regions, chunk orders or clamps, and
-// no footprint is ever clamped (overflow_frac is 0.0).
+// no footprint is ever clamped.
 //   forward:  one thread per (plane, point, 8 channels): four 16-byte tap
 //             loads, two 16-byte stores;
 //   cubic forward: probes showed skipping the stores or reading every tap

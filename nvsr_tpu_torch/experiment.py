@@ -39,9 +39,10 @@ without a host wait.
 
 The baseline NeRF (a config whose `models.coarse.type` is not
 TwoDimPlanesModel, as configs/MipNeRF_baseline.yml) has no planes, SR net
-or kernel: its two MLPs train through `train.train_step_baseline` and its
-eval renders take the plain path, with the same checkpoint layout as
-JAX's baseline.
+or kernel: its two MLPs train through `train.train_step_baseline`, which
+differs from `train.train_step` only in its point fns, in the same
+training iteration; its eval renders take the plain path, with the same
+checkpoint layout as JAX's baseline.
 
 Data parallel (`experiment.data_parallel: true | N`) runs one process
 per rank under torch.distributed (`cli.py` under torchrun), with JAX's
@@ -84,6 +85,7 @@ import os
 import re
 import time
 from collections import OrderedDict, defaultdict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -120,7 +122,8 @@ from nvsr_tpu_torch.planes_store import (PlaneStore, PlanesBuffer,
                                          create_scene_planes,
                                          decoder_tied_init_std,
                                          materialize_pos_planes)
-from nvsr_tpu_torch.render import (RenderConfig, build_sampled_rays,
+from nvsr_tpu_torch.render import (RayBundle, RenderConfig,
+                                   build_sampled_rays,
                                    make_triplane_point_fn, render_image,
                                    tighten_bundle)
 from nvsr_tpu_torch.scenes import (Counter, ImageSampler, SceneCoupler,
@@ -176,6 +179,19 @@ def find_latest_checkpoint(ckpt_path: str, sr: bool,
         return None
     latest = sorted(cands, key=lambda x: int(re.search(pattern, x).group(0)))
     return os.path.join(ckpt_path, latest[-1])
+
+
+class _Batch(NamedTuple):
+    """One training iteration's draw (Experiment._draw_batch): the whole
+    batch on the device, untightened and unsharded."""
+    scene_id: str
+    sr_iter: bool
+    consistency_iter: bool
+    rays: RayBundle
+    target: torch.Tensor
+    rcfg: RenderConfig
+    tile_cfg: Optional[TileSamplerConfig]
+    member: int
 
 
 class Experiment:
@@ -697,6 +713,8 @@ class Experiment:
         self.sr_params = None
         self.sr_cfg = None
         self.sr_checkpoint_source = None
+        self.rendering_loss_w = 1.0
+        self.apply_sr_to_coarse = False
         if not self.sr_experiment or not self.planes_model:
             return
         sr_section = cfg.get("super_resolution", CfgNode())
@@ -997,7 +1015,7 @@ class Experiment:
         cfg = self.cfg
         stop_coarse = (self.planes_model and self.sr_params is not None
                        and not self.decoder_training
-                       and not getattr(self, "apply_sr_to_coarse", False))
+                       and not self.apply_sr_to_coarse)
         return RenderConfig.from_cfg(
             cfg.nerf[mode], cfg.nerf,
             stop_coarse_grad=stop_coarse and mode == "train")
@@ -1033,7 +1051,7 @@ class Experiment:
             hr = apply_plane_sr(self.sr_params, self.sr_cfg, pos,
                                 mesh=self._tp)
             fine_planes = hr
-            if getattr(self, "apply_sr_to_coarse", False):
+            if self.apply_sr_to_coarse:
                 coarse_planes = hr
         tile_cfg = self.eval_tile_cfg(scene_id) if tiled else None
         dc, df, mesh = self._eval_decoders(kernels=tile_cfg is not None)
@@ -1210,7 +1228,7 @@ class Experiment:
         # to its XLA path, with a time probe between them, because its TPU
         # kernel clamps a chunk's gather region; the port's kernels gather
         # every tap exactly, so a tiled render never overflows and there
-        # is nothing to escalate (and no tiled_overflow_frac to report)
+        # is nothing to escalate or to report
         pf_c, pf_f = self._point_fns_for_eval(scene_id, planes,
                                               skip_sr=skip_sr, tiled=tiled)
         # under a mesh, a deterministic render shares its ray blocks over
@@ -1351,187 +1369,210 @@ class Experiment:
         return t.to(self.device)
 
     def train_iteration(self, iteration: int):
-        """One training iteration: draw a view and its pixels, one
-        train_step, the planes' Adam step, the gated decoder and SR
-        steps at the end of a virtual batch. The metrics are queued on
-        the device. Returns the buffer's new scenes when it was redrawn,
-        else None.
+        """One training iteration: draw a view and its pixels, one step
+        (train_step, or train_step_baseline for the baseline), the
+        planes' Adam step, the gated decoder and SR steps at the end of a
+        virtual batch. The metrics are queued on the device. Returns the
+        buffer's new scenes when it was redrawn, else None.
 
         Under a profiler the iteration is a `train_iteration` span (args:
         the iteration and its kind, "lr", "sr" or "consistency") whose
         children follow one another: `input` (the draw, the rays and the
         target to the device; for a planes model a second one after
         `occupancy`: the planes lent, the rays tightened to the occupied
-        box), `occupancy`, train_step's `forward` and `backward`,
+        box; the last one builds the flags and takes this rank's share),
+        `occupancy`, the step's `forward` and `backward`,
         `reduce` (under a mesh; arg `bytes`, what its all_reduce moved)
         and `optimizer`."""
         with span("train_iteration", iteration=iteration) as root:
             return self._train_iteration(iteration, root)
 
     def _train_iteration(self, iteration: int, root):
-        cfg = self.cfg
-        first_vb = iteration % self.virtual_batch_size == 0
-        last_vb = (iteration % self.virtual_batch_size
-                   == self.virtual_batch_size - 1)
-        if first_vb:
+        vb = self.virtual_batch_size
+        if iteration % vb == 0:
             # before the forward: a virtual batch's unstepped sums are freed
             if self.decoder_opt is not None:
                 self.decoder_opt.zero()
             if self.sr_opt is not None:
                 self.sr_opt.zero()
         with span("input"):
-            scene_id, img_idx = self.image_sampler.sample()
-            sr_iter = scene_id in self.scene_coupler.downsample_couples
-            img, pose, h, w, focal, ds_f = self.dataset.item(img_idx)
-            consistency_iter = bool(self.im_inconsistency_loss_w) and \
-                scene_id in self.dataset.val_only_scene_ids
-            root.set(kind="consistency" if consistency_iter
-                     else "sr" if sr_iter else "lr")
-            coupler_ds = self.scene_coupler.ds_factor
-            if consistency_iter:
-                # the HR scene's rays, averaged over ds x ds patches,
-                # against its LR couple's pixels
-                h, w, focal = (h * coupler_ds, w * coupler_ds,
-                               focal * coupler_ds)
-                ds_f = ds_f // coupler_ds
-            num_rays = cfg.get_path("nerf.train.num_random_rays", 4096)
-            train_tc = None if consistency_iter \
-                else self.train_tile_cfg(scene_id, num_rays)
-            if consistency_iter:
-                rows, cols, target = choose_patch_pixels(
-                    self.host_rng, img, num_rays, coupler_ds)
-            elif train_tc is not None:
-                rows, cols, target = choose_tile_pixels(
-                    self.host_rng, img, num_rays,
-                    tile=self.train_tile_shape())
-            else:
-                rows, cols, target = choose_random_pixels(
-                    self.host_rng, img, num_rays)
-            scene_type = self.dataset.scene_types.get(scene_id, "synt")
-            sc_cfg = cfg.dataset[scene_type]
-            focal_arg = (tuple(float(f) for f in focal)
-                         if isinstance(focal, (tuple, list, np.ndarray))
-                         else float(focal))
-            rays = build_sampled_rays(
-                self._to_device(np.asarray(pose, dtype=np.float32)),
-                self._to_device(rows), self._to_device(cols), float(h),
-                float(w), focal_arg, downsampling_offset(ds_f),
-                float(sc_cfg["near"]), float(sc_cfg["far"]),
-                use_viewdirs=cfg.nerf.get("use_viewdirs", True),
-                no_ndc=bool(sc_cfg["no_ndc"]))
-            target = self._to_device(np.asarray(target, dtype=np.float32))
-            rcfg = self._mode_render_cfg("train", scene_id)
-            if self.planes_model:
-                member = int(self.host_rng.integers(
-                    self.model_cfg.ensemble_size))
-            else:
-                flags = StepFlags(
-                    consistency_iter=consistency_iter,
-                    im_inconsistency_loss_w=self.im_inconsistency_loss_w
-                    or 0.0,
-                    ds_factor=coupler_ds,
-                    share_coarse_fine=self.share_coarse_fine)
-                rays, target, generator = self._shard_batch(
-                    rays, target, self.render_generator)
-
+            batch = self._draw_batch(root)
+            if not self.planes_model:
+                step_in = self._step_inputs(batch)
         if self.planes_model:
             with span("occupancy"):
-                self._maybe_update_occupancy(scene_id, iteration)
+                self._maybe_update_occupancy(batch.scene_id, iteration)
+            # the planes are lent after the occupancy update has read them
             with span("input"):
-                planes = self.planes_buffer.lend(scene_id)
-                occ_aabb = self._occ_aabb_for(scene_id, planes)
-                if occ_aabb is not None:
-                    rays = tighten_bundle(
-                        rays, occ_aabb,
-                        tile_rays=train_tc.tile_rays if train_tc is not None
-                        else None)
-                sr_loss_cfg = cfg.get_path(
-                    "super_resolution.training.loss",
-                    "fine") if self.sr_experiment else "both"
-                trains_lr = any(m in self.what2train
-                                for m in ("decoder", "LR_planes"))
-                occ = self.occupancy_cfg
-                flags = StepFlags(
-                    sr_iter=sr_iter and self.sr_params is not None,
-                    consistency_iter=consistency_iter,
-                    detach_lr_planes=cfg.get_path(
-                        "nerf.train.detach_LR_planes", False),
-                    apply_sr_to_coarse=getattr(self, "apply_sr_to_coarse",
-                                               False),
-                    compute_coarse_loss=trains_lr or sr_loss_cfg != "fine",
-                    compute_fine_loss=trains_lr or sr_loss_cfg != "coarse",
-                    rendering_loss_w=getattr(self, "rendering_loss_w", 1.0),
-                    im_inconsistency_loss_w=self.im_inconsistency_loss_w
-                    or 0.0,
-                    ds_factor=coupler_ds,
-                    share_coarse_fine=self.share_coarse_fine,
-                    member=member,
-                    plane_rank=planes.rank,
-                    plane_resolution=self._scene_plane_res(scene_id),
-                    train_planes=self.planes_buffer.optimize,
-                    train_decoder=self.decoder_opt is not None,
-                    train_sr=self.sr_opt is not None,
-                    track_surface_aabb=(occ is not None
-                                        and occ["mode"] == "surface"
-                                        and self.planes_buffer.optimize),
-                    surf_weight_eps=float((occ or {}).get("weight_eps",
-                                                          0.01)),
-                    tile_cfg=train_tc)
-                rays, target, generator = self._shard_batch(
-                    rays, target, self.render_generator)
-            metrics, grads = train_step(
-                self.decoder_coarse, self.decoder_fine, self.sr_params,
-                planes.params(), self._on_device("box", scene_id, planes.box),
-                rays, target, generator,
-                model_cfg=self.model_cfg, sr_cfg=self.sr_cfg, rcfg=rcfg,
-                flags=flags, mesh=self._tp)
-        else:
+                step_in = self._step_inputs(batch)
+        planes, flags, rays, target, generator = step_in
+        if planes is None:
             metrics, grads = train_step_baseline(
                 self.decoder_coarse, self.decoder_fine, rays, target,
-                generator, mlp_cfg=self.mlp_cfg, rcfg=rcfg,
-                flags=flags, enc_cfg=self._enc_for(scene_id))
+                generator, mlp_cfg=self.mlp_cfg, rcfg=batch.rcfg,
+                flags=flags, enc_cfg=self._enc_for(batch.scene_id))
+        else:
+            metrics, grads = train_step(
+                self.decoder_coarse, self.decoder_fine, self.sr_params,
+                planes.params(),
+                self._on_device("box", batch.scene_id, planes.box), rays,
+                target, generator, model_cfg=self.model_cfg,
+                sr_cfg=self.sr_cfg, rcfg=batch.rcfg, flags=flags,
+                mesh=self._tp)
         if self.mesh is not None:
             with span("reduce") as sp:
                 before = COLLECTIVES["data:all_reduce_bytes"]
                 metrics, grads = reduce_step(self.mesh, metrics, grads)
                 sp.set(bytes=COLLECTIVES["data:all_reduce_bytes"] - before)
-        if self.planes_model and flags.track_surface_aabb:
+        if flags.track_surface_aabb:
             # device tensors, fetched in one copy at the commit
-            self._occ_window.setdefault(scene_id, []).append(
+            self._occ_window.setdefault(batch.scene_id, []).append(
                 (metrics.pop("surf_w"), metrics.pop("surf_wx"),
                  metrics.pop("surf_wx2")))
-
         with span("optimizer"):
-            if self.planes_model and "planes" in grads:
-                self.planes_buffer.apply_grads(scene_id, grads["planes"])
-            # module-gated optimizer steps
-            confinements = self.dataset.module_confinements.get(scene_id,
-                                                                [])
-            if self.decoder_opt is not None:
-                self.decoder_opt.accumulate(
-                    {k: grads[k] for k in ("dc", "df")
-                     if k in grads and k in self.decoder_opt.params})
-            if self.sr_opt is not None and "sr" in grads:
-                self.sr_opt.accumulate(grads["sr"])
-            new_drawn = self.planes_buffer.step_cadence() \
-                if self.planes_model else None
-            if last_vb:
-                if self.decoder_opt is not None:
-                    decoder_step = "decoder" not in confinements
-                    if "SR" in self.what2train and cfg.get_path(
-                            "nerf.train.separate_decoder_sr", False):
-                        decoder_step &= not sr_iter
-                    if decoder_step and (self.decoder_training
-                                         or not self.planes_model):
-                        self.decoder_opt.step()
-                    else:
-                        self.decoder_opt.zero()
-                if (self.sr_opt is not None and sr_iter
-                        and "SR" not in confinements):
-                    self.sr_opt.step()
+            new_drawn = self._optimizer_steps(batch, grads,
+                                              iteration % vb == vb - 1)
         self._pending_metrics.append(
-            (iteration, consistency_iter, sr_iter,
+            (iteration, batch.consistency_iter, batch.sr_iter,
              torch.stack([metrics[k] for k in self._METRIC_STACK])))
+        return new_drawn
+
+    def _draw_batch(self, root) -> _Batch:
+        """The iteration's view and pixels, drawn from the image sampler
+        and the host generator (pixels, then a planes model's ensemble
+        member), with their rays and target on the device; sets the
+        root span's `kind`."""
+        cfg = self.cfg
+        scene_id, img_idx = self.image_sampler.sample()
+        sr_iter = scene_id in self.scene_coupler.downsample_couples
+        img, pose, h, w, focal, ds_f = self.dataset.item(img_idx)
+        consistency_iter = bool(self.im_inconsistency_loss_w) and \
+            scene_id in self.dataset.val_only_scene_ids
+        root.set(kind="consistency" if consistency_iter
+                 else "sr" if sr_iter else "lr")
+        coupler_ds = self.scene_coupler.ds_factor
+        if consistency_iter:
+            # the HR scene's rays, averaged over ds x ds patches, against
+            # its LR couple's pixels
+            h, w, focal = h * coupler_ds, w * coupler_ds, focal * coupler_ds
+            ds_f = ds_f // coupler_ds
+        num_rays = cfg.get_path("nerf.train.num_random_rays", 4096)
+        tile_cfg = None if consistency_iter \
+            else self.train_tile_cfg(scene_id, num_rays)
+        if consistency_iter:
+            rows, cols, target = choose_patch_pixels(
+                self.host_rng, img, num_rays, coupler_ds)
+        elif tile_cfg is not None:
+            rows, cols, target = choose_tile_pixels(
+                self.host_rng, img, num_rays, tile=self.train_tile_shape())
+        else:
+            rows, cols, target = choose_random_pixels(
+                self.host_rng, img, num_rays)
+        sc_cfg = cfg.dataset[self.dataset.scene_types.get(scene_id, "synt")]
+        focal_arg = (tuple(float(f) for f in focal)
+                     if isinstance(focal, (tuple, list, np.ndarray))
+                     else float(focal))
+        rays = build_sampled_rays(
+            self._to_device(np.asarray(pose, dtype=np.float32)),
+            self._to_device(rows), self._to_device(cols), float(h),
+            float(w), focal_arg, downsampling_offset(ds_f),
+            float(sc_cfg["near"]), float(sc_cfg["far"]),
+            use_viewdirs=cfg.nerf.get("use_viewdirs", True),
+            no_ndc=bool(sc_cfg["no_ndc"]))
+        member = int(self.host_rng.integers(self.model_cfg.ensemble_size)) \
+            if self.planes_model else 0
+        return _Batch(
+            scene_id, sr_iter, consistency_iter, rays,
+            self._to_device(np.asarray(target, dtype=np.float32)),
+            self._mode_render_cfg("train", scene_id), tile_cfg, member)
+
+    def _step_inputs(self, batch: _Batch):
+        """(lent planes or None, flags, this rank's rays, target and
+        generator); a planes model's rays tightened to its occupied box."""
+        rays, planes = batch.rays, None
+        if self.planes_model:
+            planes = self.planes_buffer.lend(batch.scene_id)
+            occ_aabb = self._occ_aabb_for(batch.scene_id, planes)
+            if occ_aabb is not None:
+                rays = tighten_bundle(
+                    rays, occ_aabb, tile_rays=None if batch.tile_cfg is None
+                    else batch.tile_cfg.tile_rays)
+        flags = self._step_flags(batch, planes)
+        rays, target, generator = self._shard_batch(rays, batch.target,
+                                                    self.render_generator)
+        return planes, flags, rays, target, generator
+
+    def _step_flags(self, batch: _Batch, planes) -> StepFlags:
+        """The step's switches: a consistency iteration's loss weight and
+        patch size and share_coarse_fine for either kind; for a planes
+        model (`planes` lent) also the SR, loss, trained-group and
+        occupancy switches."""
+        kw = {}
+        if planes is not None:
+            cfg = self.cfg
+            sr_loss = cfg.get_path("super_resolution.training.loss", "fine") \
+                if self.sr_experiment else "both"
+            trains_lr = any(m in self.what2train
+                            for m in ("decoder", "LR_planes"))
+            occ = self.occupancy_cfg
+            kw = dict(
+                sr_iter=batch.sr_iter and self.sr_params is not None,
+                detach_lr_planes=cfg.get_path("nerf.train.detach_LR_planes",
+                                              False),
+                apply_sr_to_coarse=self.apply_sr_to_coarse,
+                compute_coarse_loss=trains_lr or sr_loss != "fine",
+                compute_fine_loss=trains_lr or sr_loss != "coarse",
+                rendering_loss_w=self.rendering_loss_w,
+                member=batch.member,
+                plane_rank=planes.rank,
+                plane_resolution=self._scene_plane_res(batch.scene_id),
+                train_planes=self.planes_buffer.optimize,
+                train_decoder=self.decoder_opt is not None,
+                train_sr=self.sr_opt is not None,
+                track_surface_aabb=(occ is not None
+                                    and occ["mode"] == "surface"
+                                    and self.planes_buffer.optimize),
+                surf_weight_eps=float((occ or {}).get("weight_eps", 0.01)),
+                tile_cfg=batch.tile_cfg)
+        return StepFlags(
+            consistency_iter=batch.consistency_iter,
+            im_inconsistency_loss_w=self.im_inconsistency_loss_w or 0.0,
+            ds_factor=self.scene_coupler.ds_factor,
+            share_coarse_fine=self.share_coarse_fine,
+            **kw)
+
+    def _optimizer_steps(self, batch: _Batch, grads: dict,
+                         last_vb: bool):
+        """The planes' Adam step, the decoder and SR gradients into their
+        virtual batches, and at a virtual batch's end the gated decoder
+        and SR steps. Returns the buffer's new scenes when it was
+        redrawn, else None."""
+        if "planes" in grads:
+            self.planes_buffer.apply_grads(batch.scene_id, grads["planes"])
+        confinements = self.dataset.module_confinements.get(batch.scene_id,
+                                                            [])
+        if self.decoder_opt is not None:
+            self.decoder_opt.accumulate(
+                {k: grads[k] for k in ("dc", "df")
+                 if k in grads and k in self.decoder_opt.params})
+        if self.sr_opt is not None and "sr" in grads:
+            self.sr_opt.accumulate(grads["sr"])
+        new_drawn = self.planes_buffer.step_cadence() \
+            if self.planes_model else None
+        if last_vb:
+            if self.decoder_opt is not None:
+                decoder_step = "decoder" not in confinements
+                if "SR" in self.what2train and self.cfg.get_path(
+                        "nerf.train.separate_decoder_sr", False):
+                    decoder_step &= not batch.sr_iter
+                if decoder_step and (self.decoder_training
+                                     or not self.planes_model):
+                    self.decoder_opt.step()
+                else:
+                    self.decoder_opt.zero()
+            if (self.sr_opt is not None and batch.sr_iter
+                    and "SR" not in confinements):
+                self.sr_opt.step()
         return new_drawn
 
     def _shard_batch(self, rays, target, generator):

@@ -599,7 +599,7 @@ def _tiled_points(params, cfg: TriplaneConfig, planes_pos, box, pts, vp_ray,
     if vp_ray is not None:
         view = fused_render.view_rows(vp_ray, packed.cvp)[:, None, :].expand(
             r, s, packed.cvp).reshape(r * s, packed.cvp)
-    out, _ = fused_render.tiled_render_chunked(
+    out = fused_render.tiled_render_chunked(
         table, packed, grids, view, align_corners=cfg.align_corners,
         avg=cfg.proj_combination == "avg", sigma_only=sigma_only, form=form)
     return out.reshape(r, s, 4)
@@ -615,7 +615,7 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
                                plane_resolution: Optional[int] = None,
                                mesh=None):
     """Kernel forward straight from rays: origins/directions [R, 3],
-    z_vals [R, S] -> ([R, S, 4], {"overflow_frac": 0.0}).
+    z_vals [R, S] -> [R, S, 4].
 
     Eval (default), on a config fused_render.supports: the fused
     gather+decode kernel (ops/fused_render.py), bilinear or bicubic.
@@ -644,7 +644,7 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
             params, cfg, planes_pos, plane_view, box, pts, viewdirs,
             member=member, noise_generator=noise_generator,
             plane_resolution=plane_resolution, rot_mats=rot_mats,
-            trainable=True, mesh=mesh), {"overflow_frac": 0.0}
+            trainable=True, mesh=mesh)
     refuse_split_decoder(mesh)
     assert noise_generator is None, \
         "point_coords_noise requires the trainable route"
@@ -664,8 +664,7 @@ def apply_triplane_rays_from_z(params, cfg: TriplaneConfig, planes_pos,
             rot = rot_mats_on(cfg.num_planes, pts.device)
         return _sampled_decode(
             params, cfg, table, _plane_coords(pts.reshape(-1, 3), box, rot),
-            vp_ray, r, s, member=member,
-            sigma_only=sigma_only), {"overflow_frac": 0.0}
+            vp_ray, r, s, member=member, sigma_only=sigma_only)
     if packed is None:
         packed = fused_render.pack_decoder(params, cfg, member)
     if geom is None:

@@ -37,12 +37,12 @@ What both compute, per point of rays x sorted depths (ray-major):
     rows rounded to bf16, the y-lerp top * (1 - ty) + bot * ty, and
     always the full decode (that kernel ignores sigma_only).
 
-overflow_frac is always 0.0: on Hopper each point's four taps per plane
-are plain loads, so no chunk footprint is ever clamped to a region.
-The TPU path's region capacity, hybrid overflow repair
-(triplane.py:501-550) and compact->XLA eval ladder (experiment.py
-:1062-1068) exist only because its kernel clamps; they have no
-counterpart here, and the aux key is kept for the point-fn protocol.
+No tap is ever clamped: on Hopper each point's four taps per plane are
+plain loads, so no chunk footprint is confined to a region, and the
+entries return their output alone. The TPU path's region capacity,
+hybrid overflow repair (triplane.py:501-550), compact->XLA eval ladder
+(experiment.py:1062-1068) and the clamped share it reports exist only
+because its kernel clamps; they have no counterpart here.
 """
 
 from __future__ import annotations
@@ -363,8 +363,8 @@ def fused_render_rays(table, packed: PackedDecoder, origins, directions,
                       align_corners: bool, avg: bool, sigma_only: bool,
                       cubic: bool = False):
     """Gather + decode for rays [R, 3] x depths [R, S] ->
-    ([R, S, 4] f32 ray-major, {"overflow_frac": 0.0}); geom from
-    geometry_args; cubic: the bicubic gather.
+    [R, S, 4] f32 ray-major; geom from geometry_args; cubic: the bicubic
+    gather.
 
     A CPU table runs the plain version; any other table goes to the
     kernel (kernels.triplane_render), which launches on a CUDA table and
@@ -372,14 +372,12 @@ def fused_render_rays(table, packed: PackedDecoder, origins, directions,
     kw = dict(align_corners=align_corners, avg=avg, sigma_only=sigma_only,
               cubic=cubic)
     if table.device.type == "cpu":
-        out = fused_render_reference(table, packed, origins, directions,
-                                     z_vals, view, geom, **kw)
-    else:
-        from nvsr_tpu_torch import kernels
-        out = kernels.triplane_render(
-            table, packed, origins.contiguous(), directions.contiguous(),
-            z_vals.contiguous(), view, geom, **kw)
-    return out, {"overflow_frac": 0.0}
+        return fused_render_reference(table, packed, origins, directions,
+                                      z_vals, view, geom, **kw)
+    from nvsr_tpu_torch import kernels
+    return kernels.triplane_render(
+        table, packed, origins.contiguous(), directions.contiguous(),
+        z_vals.contiguous(), view, geom, **kw)
 
 
 def tiled_render_chunked_reference(table, packed: PackedDecoder, grids,
@@ -401,8 +399,8 @@ def tiled_render_chunked(table, packed: PackedDecoder, grids, view, *,
                          form: str = "v2"):
     """Gather + decode at given plane coordinates, bilinear: grids
     [3, N, 2] f32 normalized (x, y) of N points, view [N, cvp] bf16 rows
-    (one per point; None for a v2 sigma_only call) -> ([N, 4] f32 in the
-    points' order, {"overflow_frac": 0.0}).
+    (one per point; None for a v2 sigma_only call) -> [N, 4] f32 in the
+    points' order.
 
     form: "v2" (the TPU default, `_mega_kernel_v2`) or "v1" (the TPU
     `_mega_kernel`, chosen there by NVSR_MEGA_V1=1): v1 rounds the
@@ -423,10 +421,8 @@ def tiled_render_chunked(table, packed: PackedDecoder, grids, view, *,
                                device=table.device)
     kw = dict(align_corners=align_corners, avg=avg, sigma_only=sigma_only)
     if table.device.type == "cpu":
-        out = tiled_render_chunked_reference(table, packed, grids, view,
-                                             form=form, **kw)
-    else:
-        from nvsr_tpu_torch import kernels
-        out = kernels.triplane_render_grids(
-            table, packed, grids.contiguous(), view, v1=form == "v1", **kw)
-    return out, {"overflow_frac": 0.0}
+        return tiled_render_chunked_reference(table, packed, grids, view,
+                                              form=form, **kw)
+    from nvsr_tpu_torch import kernels
+    return kernels.triplane_render_grids(
+        table, packed, grids.contiguous(), view, v1=form == "v1", **kw)

@@ -35,8 +35,8 @@ bf16 weights may differ from these by one bf16 ULP now and then.
 
 The TPU sampler needs tile-coherent rays (chunks share a DMA'd plane
 region and clamp when they do not fit); here each tap is a plain load,
-so the points are taken in ray-major order as they come, and
-overflow_frac is always 0.0. The backward kernel sums each chunk of
+so the points are taken in ray-major order as they come, and none is
+ever clamped. The backward kernel sums each chunk of
 consecutive points in shared memory before it adds to dplanes: any
 order is right, and a coherent one (training's, tile after tile) is
 only faster.

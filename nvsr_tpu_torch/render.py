@@ -3,8 +3,10 @@ frames and training batches (counterpart of nvsr_tpu/render.py).
 
 Point functions follow the JAX protocol: point_fn(pts [R, S, 3] | None,
 rays_block, z_vals) -> [R, S, 4]; a point fn with `consumes_rays` derives
-its own points from (rays, z); one with `has_aux` returns ([R, S, 4],
-{name: scalar}); `tile_rays` names the ray-tile size it was built for.
+its own points from (rays, z); `tile_rays` names the ray-tile size it
+was built for. JAX's tiled point fns also report the share of points
+their TPU kernel clamped; the port's kernels gather every tap, so its
+point fns report nothing beside their output.
 The JAX `lax.map` over fixed ray blocks becomes a Python loop over padded
 blocks of `ray_block` rays.
 """
@@ -16,7 +18,6 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from nvsr_tpu_torch.models.nerf_mlp import apply_nerf_mlp
 from nvsr_tpu_torch.ops import encoding as enc
@@ -80,8 +81,6 @@ class RayBundle(NamedTuple):
 class RenderResult(NamedTuple):
     coarse: RenderOutputs
     fine: Optional[RenderOutputs]
-    # max over passes and blocks of each aux scalar the point fns report
-    aux: Optional[dict] = None
 
 
 PointFn = Callable[[Optional[torch.Tensor], RayBundle, torch.Tensor],
@@ -161,20 +160,13 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
     resampling weights) from the graph. With rcfg.mip, each pass samples
     one more edge than it has intervals and its point fn gets pts=None
     (it casts the frustums between the z edges itself)."""
-    aux: dict = {}
 
     def run_pass(point_fn, z):
         if rcfg.mip or getattr(point_fn, "consumes_rays", False):
-            out = point_fn(None, rays, z)
-        else:
-            pts = (rays.origins[..., None, :]
-                   + rays.directions[..., None, :] * z[..., :, None])
-            out = point_fn(pts, rays, z)
-        if getattr(point_fn, "has_aux", False):
-            out, pass_aux = out
-            for k, v in pass_aux.items():
-                aux[k] = max(aux[k], v) if k in aux else v
-        return out
+            return point_fn(None, rays, z)
+        pts = (rays.origins[..., None, :]
+               + rays.directions[..., None, :] * z[..., :, None])
+        return point_fn(pts, rays, z)
 
     def composite(rf, z):
         return volume_render(
@@ -200,7 +192,7 @@ def render_rays(point_fn_coarse: PointFn, point_fn_fine: Optional[PointFn],
                                          det=not rcfg.perturb,
                                          generator=generator, mip=rcfg.mip)
             out_f = composite(run_pass(point_fn_fine, z_fine), z_fine)
-    return RenderResult(out_c, out_f, aux)
+    return RenderResult(out_c, out_f)
 
 
 def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
@@ -241,13 +233,6 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
         results[i] = render_rays(point_fn_coarse, point_fn_fine, blk,
                                  rcfg, generator)
 
-    # every rank names the same aux keys (the template block's too), so
-    # all of them join or skip its reduction; a rank without a block of
-    # its own adds -inf
-    aux = {k: -math.inf for res in results.values() for k in (res.aux or {})}
-    for i in mine:
-        for k, v in (results[i].aux or {}).items():
-            aux[k] = max(aux[k], v)
     if mesh is None:
         def unblock(outs):
             if outs[0] is None:
@@ -256,18 +241,16 @@ def render_rays_chunked(point_fn_coarse, point_fn_fine, rays: RayBundle,
                                    for f in zip(*outs)])
 
         return RenderResult(unblock([r.coarse for r in results.values()]),
-                            unblock([r.fine for r in results.values()]),
-                            aux or None)
-    return _assemble(results, mine, n_blocks, block, n, aux, mesh)
+                            unblock([r.fine for r in results.values()]))
+    return _assemble(results, mine, n_blocks, block, n, mesh)
 
 
 def _assemble(results: dict, mine: list, n_blocks: int, block: int, n: int,
-              aux: dict, mesh) -> RenderResult:
+              mesh) -> RenderResult:
     """The image of a mesh-sharded render from each rank's blocks `mine`
     (rendered in `results`): each output field as zeros of the whole
     padded image with this rank's blocks written in, one all_reduce(SUM)
-    over every field on the data group; the aux scalars (each a max over
-    blocks) reduced with MAX."""
+    over every field on the data group."""
     first = next(iter(results.values()))
 
     def zeros(out):
@@ -286,17 +269,12 @@ def _assemble(results: dict, mine: list, n_blocks: int, block: int, n: int,
                 if d is not None:
                     d[i * block:(i + 1) * block] = s
     full = all_reduce_((full.coarse, full.fine), mesh=mesh, axis="data")
-    if aux:
-        keys = sorted(aux)
-        t = torch.tensor([float(aux[k]) for k in keys], dtype=torch.float64)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.cpu_group)
-        aux = dict(zip(keys, t.tolist()))
 
     def crop(out):
         return None if out is None else RenderOutputs(
             *[None if f is None else f[:n] for f in out])
 
-    return RenderResult(crop(full[0]), crop(full[1]), aux or None)
+    return RenderResult(crop(full[0]), crop(full[1]))
 
 
 def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
@@ -356,7 +334,6 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                 plane_resolution=plane_resolution, mesh=mesh)
 
         point_fn.consumes_rays = True
-        point_fn.has_aux = True
         point_fn.tile_rays = tile_rays
         return point_fn
 
@@ -385,8 +362,6 @@ def make_triplane_point_fn(params, model_cfg, planes_pos, plane_view, box, *,
                 sigma_only=sigma_only)
 
         point_fn.consumes_rays = True
-        # ([R, S, 4], {"overflow_frac": 0.0}): the kernels never clamp
-        point_fn.has_aux = True
         point_fn.tile_rays = tile_rays
         return point_fn
 
@@ -508,5 +483,4 @@ def render_image(point_fn_coarse, point_fn_fine, ray_origins, ray_directions,
         return RenderOutputs(*[None if a is None else
                                a.reshape(h, w, *a.shape[1:]) for a in out])
 
-    return RenderResult(reshape(result.coarse), reshape(result.fine),
-                        result.aux)
+    return RenderResult(reshape(result.coarse), reshape(result.fine))

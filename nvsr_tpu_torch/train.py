@@ -9,8 +9,10 @@ groups then step is the caller's choice, through `ModuleOptimizer`
 (decoders, SR) and `planes_store.PlanesBuffer.apply_grads` (planes).
 `ModuleOptimizer.state` reads and writes optax.adam's state layout, so
 the JAX package's checkpoints carry over both ways. `train_step_baseline`
-is the same for the baseline NeRF (models/nerf_mlp.py), whose only
-trained groups are its two MLPs.
+is the entry for the baseline NeRF (models/nerf_mlp.py), whose only
+trained groups are its two MLPs. The two entries build only their
+inputs and point functions; the render, the losses and the backward are
+one body (`_step`).
 """
 
 from __future__ import annotations
@@ -118,6 +120,72 @@ def _inputs(tree, trainable: bool):
     return _tree_map(lambda t: t.detach().requires_grad_(trainable), tree)
 
 
+def _decoder_inputs(decoder_coarse, decoder_fine, flags: StepFlags,
+                    diff: dict):
+    """The decoders as autograd sees them -> (dc, df), df being dc with
+    share_coarse_fine; trained ones are added to `diff` as "dc", "df"."""
+    dc = _inputs(decoder_coarse, flags.train_decoder)
+    df = dc if flags.share_coarse_fine \
+        else _inputs(decoder_fine, flags.train_decoder)
+    if flags.train_decoder:
+        diff["dc"] = dc
+        if not flags.share_coarse_fine:
+            diff["df"] = df
+    return dc, df
+
+
+def _step(build, rays: RayBundle, target, generator, rcfg: RenderConfig,
+          flags: StepFlags):
+    """The step of either model kind. Under the `forward` span: build()
+    -> (the trained groups' inputs, a tree whose leaves require grad;
+    the coarse point fn; the fine point fn), render_rays, on a
+    consistency iteration each ds x ds patch's mean colour (a
+    `consistency_loss` span), the coarse and fine losses and their
+    weighted total. Under `backward`: one torch.autograd.grad over the
+    trained leaves. -> (metrics, grads) as train_step returns them."""
+    if flags.track_surface_aabb and not rcfg.keep_z:
+        rcfg = dataclasses.replace(rcfg, keep_z=True)
+    with span("forward"):
+        diff, pf_coarse, pf_fine = build()
+        out = render_rays(pf_coarse, pf_fine, rays, rcfg, generator)
+        rgb_coarse = out.coarse.rgb
+        rgb_fine = out.fine.rgb if out.fine is not None else None
+        # a consistency iteration's loss: each ds x ds patch's mean
+        # colour against its LR pixel (target's rows)
+        with span("consistency_loss", patches=target.shape[0],
+                  ds=flags.ds_factor) if flags.consistency_iter else NO_SPAN:
+            if flags.consistency_iter:
+                rgb_coarse = avg_downsample_pixels(rgb_coarse,
+                                                   flags.ds_factor)
+                if rgb_fine is not None:
+                    rgb_fine = avg_downsample_pixels(rgb_fine,
+                                                     flags.ds_factor)
+
+            def loss(rgb, computed):
+                if computed and rgb is not None:
+                    return img2mse(rgb, target[..., :3])
+                return torch.zeros((), device=target.device)
+
+            coarse_loss = loss(rgb_coarse, flags.compute_coarse_loss)
+            fine_loss = loss(rgb_fine, flags.compute_fine_loss)
+            rendering_loss = coarse_loss + fine_loss
+        total = _loss_weight(flags) * rendering_loss
+        metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
+        if flags.track_surface_aabb:
+            metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
+    with span("backward"):
+        leaves = _leaves(diff)
+        grads = {}
+        if leaves:
+            # a loss that reaches no trained group (e.g. only a detached
+            # coarse loss) has no graph: every gradient is zero, as in JAX
+            gl = [None] * len(leaves) if not total.requires_grad else \
+                torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
+                                      for x, g in zip(leaves, gl)])
+    return metrics, grads
+
+
 def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
                rays: RayBundle, target, generator: torch.Generator, *,
                model_cfg: TriplaneConfig, sr_cfg: Optional[PlaneSRConfig],
@@ -139,119 +207,69 @@ def train_step(decoder_coarse, decoder_fine, sr_params, plane_params, box,
     None otherwise.
 
     Returns (metrics, grads): metrics holds detached scalar tensors
-    (loss, coarse_loss, fine_loss, psnr, fine_psnr, and overflow_frac on
-    the trainable route); grads has the JAX layout {"planes", "dc",
-    "df", "sr"} for the trained groups, each the structure of its input.
-    Under a profiler, the `plane_sr` span gets the args `conv_data_grads`
-    and `recomputed_blocks` after the backward: the SR convs' data
-    gradients taken as forward convolutions (models.plane_sr.PlaneConv)
-    and the EDSR's residual blocks recomputed in the backward
-    (models.plane_sr.BlockRecompute); on a consistency iteration
-    the patch means and the loss are a `consistency_loss` span (args
-    `patches`, the LR pixels of this batch, and `ds`).
+    (loss, coarse_loss, fine_loss, psnr, fine_psnr, and with
+    track_surface_aabb surf_w, surf_wx, surf_wx2); grads has the JAX
+    layout {"planes", "dc", "df", "sr"} for the trained groups, each the
+    structure of its input. Under a profiler, the `plane_sr` span gets
+    the args `conv_data_grads` and `recomputed_blocks` after the
+    backward: the SR convs' data gradients taken as forward convolutions
+    (models.plane_sr.PlaneConv) and the EDSR's residual blocks
+    recomputed in the backward (models.plane_sr.BlockRecompute), both
+    counted in the backward only; on a consistency iteration the patch
+    means and the loss are a `consistency_loss` span (args `patches`,
+    the LR pixels of this batch, and `ds`).
     """
-    with span("forward"):
-        metrics, diff, total, sr_span = _forward(
-            decoder_coarse, decoder_fine, sr_params, plane_params, box, rays,
-            target, generator, model_cfg, sr_cfg, rcfg, flags, mesh)
     data_grads, recomputed = PlaneConv.data_grads, BlockRecompute.blocks
-    with span("backward"):
-        leaves = _leaves(diff)
-        grads = {}
-        if leaves:
-            # a loss that reaches no trained group (e.g. only a detached
-            # coarse loss) has no graph: every gradient is zero, as in JAX
-            gl = [None] * len(leaves) if not total.requires_grad else \
-                torch.autograd.grad(total, leaves, allow_unused=True)
-            grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
-                                      for x, g in zip(leaves, gl)])
+    sr_span = None
+
+    def build():
+        nonlocal sr_span
+        diff = {}
+        planes = _inputs(plane_params, flags.train_planes)
+        if flags.train_planes:
+            diff["planes"] = planes
+        dc, df = _decoder_inputs(decoder_coarse, decoder_fine, flags, diff)
+        sr = None
+        if sr_params is not None:
+            sr = _inputs(sr_params, flags.train_sr)
+            if flags.train_sr:
+                diff["sr"] = sr
+        planes_pos = materialize_pos_planes(planes["pos"], flags.plane_rank)
+        plane_view = planes.get("view")
+        # point_coords_noise draws only when it is on, so the other draws
+        # stay in step
+        noise_gen = generator if (model_cfg.point_coords_noise
+                                  and flags.plane_resolution) else None
+        coarse_planes = fine_planes = planes_pos
+        if flags.sr_iter and sr is not None:
+            sr_in = planes_pos.detach() if flags.detach_lr_planes \
+                else planes_pos
+            # the SR net's noise is of the planes, not of the batch's rows
+            with span("plane_sr") as sr_span:
+                fine_planes = apply_plane_sr(
+                    sr, sr_cfg, sr_in, train=True,
+                    generator=draws.base(generator), mesh=mesh)
+            if flags.apply_sr_to_coarse:
+                coarse_planes = fine_planes
+        tiled = {}
+        if flags.tile_cfg is not None:
+            tiled = dict(tile_rays=flags.tile_cfg.tile_rays, tile_train=True)
+        pf_coarse = make_triplane_point_fn(
+            dc, model_cfg, coarse_planes, plane_view, box,
+            member=flags.member, noise_generator=noise_gen,
+            plane_resolution=flags.plane_resolution, mesh=mesh, **tiled)
+        # the fine pass keeps the plain gather even with tile_cfg, as in JAX
+        pf_fine = make_triplane_point_fn(
+            df, model_cfg, fine_planes, plane_view, box,
+            member=flags.member, noise_generator=noise_gen,
+            plane_resolution=flags.plane_resolution, mesh=mesh)
+        return diff, pf_coarse, pf_fine
+
+    metrics, grads = _step(build, rays, target, generator, rcfg, flags)
     if sr_span is not None:
         sr_span.set(conv_data_grads=PlaneConv.data_grads - data_grads,
                     recomputed_blocks=BlockRecompute.blocks - recomputed)
     return metrics, grads
-
-
-def _forward(decoder_coarse, decoder_fine, sr_params, plane_params, box,
-             rays, target, generator, model_cfg, sr_cfg, rcfg, flags, mesh):
-    """train_step's forward -> (detached metrics, the trained groups'
-    inputs {"planes", "dc", "df", "sr"}, the weighted loss, the
-    `plane_sr` span or None)."""
-    if flags.track_surface_aabb and not rcfg.keep_z:
-        rcfg = dataclasses.replace(rcfg, keep_z=True)
-    diff = {}
-    planes = _inputs(plane_params, flags.train_planes)
-    if flags.train_planes:
-        diff["planes"] = planes
-    dc = _inputs(decoder_coarse, flags.train_decoder)
-    df = dc if flags.share_coarse_fine \
-        else _inputs(decoder_fine, flags.train_decoder)
-    if flags.train_decoder:
-        diff["dc"] = dc
-        if not flags.share_coarse_fine:
-            diff["df"] = df
-    sr = None
-    if sr_params is not None:
-        sr = _inputs(sr_params, flags.train_sr)
-        if flags.train_sr:
-            diff["sr"] = sr
-
-    planes_pos = materialize_pos_planes(planes["pos"], flags.plane_rank)
-    plane_view = planes.get("view")
-    # point_coords_noise draws only when it is on, so the other draws
-    # stay in step
-    noise_gen = generator if (model_cfg.point_coords_noise
-                              and flags.plane_resolution) else None
-    coarse_planes = fine_planes = planes_pos
-    sr_span = None
-    if flags.sr_iter and sr is not None:
-        sr_in = planes_pos.detach() if flags.detach_lr_planes \
-            else planes_pos
-        # the SR net's noise is of the planes, not of the batch's rows
-        with span("plane_sr") as sr_span:
-            fine_planes = apply_plane_sr(sr, sr_cfg, sr_in, train=True,
-                                         generator=draws.base(generator),
-                                         mesh=mesh)
-        if flags.apply_sr_to_coarse:
-            coarse_planes = fine_planes
-
-    tiled = {}
-    if flags.tile_cfg is not None:
-        tiled = dict(tile_rays=flags.tile_cfg.tile_rays, tile_train=True)
-    pf_coarse = make_triplane_point_fn(
-        dc, model_cfg, coarse_planes, plane_view, box, member=flags.member,
-        noise_generator=noise_gen, plane_resolution=flags.plane_resolution,
-        mesh=mesh, **tiled)
-    # the fine pass keeps the plain gather even with tile_cfg, as in JAX
-    pf_fine = make_triplane_point_fn(
-        df, model_cfg, fine_planes, plane_view, box, member=flags.member,
-        noise_generator=noise_gen, plane_resolution=flags.plane_resolution,
-        mesh=mesh)
-    out = render_rays(pf_coarse, pf_fine, rays, rcfg, generator)
-
-    rgb_coarse = out.coarse.rgb
-    rgb_fine = out.fine.rgb if out.fine is not None else None
-    # a consistency iteration's loss: each ds x ds patch's mean colour
-    # against its LR pixel (target's rows)
-    with span("consistency_loss", patches=target.shape[0],
-              ds=flags.ds_factor) if flags.consistency_iter else NO_SPAN:
-        if flags.consistency_iter:
-            rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
-            if rgb_fine is not None:
-                rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
-        zero = torch.zeros((), device=target.device)
-        coarse_loss = fine_loss = zero
-        if flags.compute_coarse_loss:
-            coarse_loss = img2mse(rgb_coarse, target[..., :3])
-        if flags.compute_fine_loss and rgb_fine is not None:
-            fine_loss = img2mse(rgb_fine, target[..., :3])
-        rendering_loss = coarse_loss + fine_loss
-    total = _loss_weight(flags) * rendering_loss
-    metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
-    if out.aux and "overflow_frac" in out.aux:
-        metrics["overflow_frac"] = out.aux["overflow_frac"]
-    if flags.track_surface_aabb:
-        metrics.update(_surface_moments(out, rays, flags, rcfg.mip))
-    return metrics, diff, total, sr_span
 
 
 def _step_metrics(rendering_loss, coarse_loss, fine_loss) -> dict:
@@ -331,43 +349,20 @@ def train_step_baseline(decoder_coarse, decoder_fine, rays: RayBundle,
                         target, generator: torch.Generator, *, mlp_cfg,
                         rcfg: RenderConfig, flags: StepFlags,
                         enc_cfg: tuple):
-    """Forward and backward of the baseline NeRF (PE or mip-IPE) for one
-    ray batch: the coarse MLP and, unless flags.share_coarse_fine, the
-    fine one are trained, with one torch.autograd.grad.
+    """train_step for the baseline NeRF (PE or mip-IPE): its two MLPs
+    (one with flags.share_coarse_fine) are its only groups.
 
     enc_cfg: (num_fn_xyz, num_fn_dir, include_xyz, include_dir, mip,
-    ds_factor, ipe_multires). On a consistency iteration the rendered
-    rgb is averaged over ds_factor^2 patches before the loss, and the
-    loss is weighted by im_inconsistency_loss_w. Returns (metrics, grads)
-    as train_step does, grads {"dc", "df"?}."""
-    with span("forward"):
-        dc = _inputs(decoder_coarse, True)
-        diff = {"dc": dc}
-        df = dc
-        if not flags.share_coarse_fine:
-            df = diff["df"] = _inputs(decoder_fine, True)
-        out = render_rays(baseline_point_fn(dc, mlp_cfg, enc_cfg),
-                          baseline_point_fn(df, mlp_cfg, enc_cfg), rays,
-                          rcfg, generator)
-        rgb_coarse = out.coarse.rgb
-        rgb_fine = out.fine.rgb if out.fine is not None else None
-        if flags.consistency_iter:
-            rgb_coarse = avg_downsample_pixels(rgb_coarse, flags.ds_factor)
-            if rgb_fine is not None:
-                rgb_fine = avg_downsample_pixels(rgb_fine, flags.ds_factor)
-        coarse_loss = img2mse(rgb_coarse, target[..., :3])
-        fine_loss = img2mse(rgb_fine, target[..., :3]) \
-            if rgb_fine is not None \
-            else torch.zeros((), device=target.device)
-        rendering_loss = coarse_loss + fine_loss
-        metrics = _step_metrics(rendering_loss, coarse_loss, fine_loss)
-    with span("backward"):
-        leaves = _leaves(diff)
-        gl = torch.autograd.grad(_loss_weight(flags) * rendering_loss,
-                                 leaves, allow_unused=True)
-        grads = _unflatten(diff, [torch.zeros_like(x) if g is None else g
-                                  for x, g in zip(leaves, gl)])
-    return metrics, grads
+    ds_factor, ipe_multires). Returns (metrics, grads) as train_step
+    does, grads {"dc", "df"?}."""
+
+    def build():
+        diff = {}
+        dc, df = _decoder_inputs(decoder_coarse, decoder_fine, flags, diff)
+        return (diff, baseline_point_fn(dc, mlp_cfg, enc_cfg),
+                baseline_point_fn(df, mlp_cfg, enc_cfg))
+
+    return _step(build, rays, target, generator, rcfg, flags)
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,9 @@ class RunningScores:
             for m in metrics}
 
     def add(self, metric: str, group: str, value: float):
-        # metrics that only fire conditionally (e.g. the tiled path's
-        # overflow_frac, surfaced only when a chunk clamps) register
-        # lazily — a KeyError here killed an eval mid-run (round 4)
+        # a metric outside the constructor's list (one that only some
+        # runs or iterations write) registers here, lazily: a KeyError
+        # here would kill an eval mid-run
         if metric not in self.scores:
             self.scores[metric] = {
                 g: deque(maxlen=ml) for g, ml in self._maxlens.items()}

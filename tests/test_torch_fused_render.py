@@ -35,10 +35,9 @@ def _scene(rng, cfg, res=64, view_res=16):
 
 def _port_fused(tree, cfg, planes, view, origins, dirs, viewdirs, z,
                 sigma_only):
-    out, aux = tt.apply_triplane_rays_from_z(
+    out = tt.apply_triplane_rays_from_z(
         to_port(tree), port_cfg(cfg), t(planes), t(view), BOX, t(origins),
         t(dirs), t(viewdirs), t(z), sigma_only=sigma_only)
-    assert aux == {"overflow_frac": 0.0}
     return out.numpy()
 
 

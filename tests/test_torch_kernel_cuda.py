@@ -311,12 +311,12 @@ def test_grids_entries_match_plain(device, layers, chans, shape, form,
             kernels.triplane_render_grids_full)
     before = kern.launches
     kw = dict(align_corners=True, avg=True, sigma_only=sigma_only)
-    out, aux = fused_render.tiled_render_chunked(table, packed, grids, view,
-                                                 form=form, **kw)
+    out = fused_render.tiled_render_chunked(table, packed, grids, view,
+                                            form=form, **kw)
     ref = fused_render.tiled_render_chunked_reference(
         table, packed, grids, view, form=form, **kw)
     torch.cuda.synchronize()
-    assert out.shape == (grids.shape[1], 4) and aux == {"overflow_frac": 0.0}
+    assert out.shape == (grids.shape[1], 4)
     err = (out - ref).abs()
     assert err.max() < 2e-2 and err.mean() < 1e-3, err.max()
     assert kern.launches == before + 1

@@ -96,11 +96,13 @@ def test_an_iteration_records_one_root_and_its_phases(corpus, monkeypatch):
     assert len(roots) == 1 and roots[0]["parent"] is None
     root = roots[0]["index"]
     assert roots[0]["args"]["iteration"] == 7
-    assert roots[0]["args"]["kind"] in ("lr", "consistency")
+    kind = roots[0]["args"]["kind"]
+    assert kind in ("lr", "consistency")
     assert _children(recs, root) == ["input", "forward", "backward",
                                      "optimizer"]
     forward = next(r["index"] for r in recs if r["name"] == "forward")
-    assert _children(recs, forward) == ["render.coarse", "render.fine"]
+    assert _children(recs, forward) == ["render.coarse", "render.fine"] + (
+        ["consistency_loss"] if kind == "consistency" else [])
     assert all(r["iteration"] == 7 for r in recs)
 
     exp = _stage1(corpus, "logs/sr_on")

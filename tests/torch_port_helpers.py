@@ -160,5 +160,4 @@ def tiled_frames(tree_c, tree_f, cfg, planes_c, planes_f, view, port_f=None):
                                       perturb=False, ray_block=256),
             near=2.0, far=6.0, tile=8)
     assert float(ref.aux["overflow_frac"]) == 0.0
-    assert out.aux == {"overflow_frac": 0.0}
     return ref, out
